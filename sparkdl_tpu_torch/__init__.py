@@ -1,0 +1,46 @@
+"""sparkdl_tpu_torch — the PyTorch/CUDA port of sparkdl_tpu.
+
+The same pipeline surface as ``sparkdl_tpu`` (``readImages`` →
+``DeepImageFeaturizer`` → a features column), run by PyTorch on an
+NVIDIA GPU, with the one hand-written TPU kernel of the JAX package
+rewritten as a CUDA kernel (``ops/csrc/resize_normalize.cu``).
+
+The port imports torch, numpy and the standard library only: nothing of
+JAX, flax, pyarrow or ``sparkdl_tpu``. Every entry point that touches a
+device takes ``device=None``, which means ``"cuda"``; without a card it
+raises instead of falling back to the CPU, so a CPU run is always asked
+for (``device="cpu"``).
+
+Exports resolve lazily, so importing the package loads only what a
+symbol needs.
+"""
+
+__version__ = "0.1.0"
+
+_EXPORTS = {
+    "imageSchema": ("sparkdl_tpu_torch.image.imageIO", "imageSchema"),
+    "readImages": ("sparkdl_tpu_torch.image.imageIO", "readImages"),
+    "DeepImageFeaturizer": ("sparkdl_tpu_torch.transformers.named_image",
+                            "DeepImageFeaturizer"),
+    "ImageTransformer": ("sparkdl_tpu_torch.transformers.image_transform",
+                         "ImageTransformer"),
+    "DataFrame": ("sparkdl_tpu_torch.data.frame", "DataFrame"),
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    try:
+        module_name, attr = _EXPORTS[name]
+    except KeyError:
+        raise AttributeError(
+            f"module 'sparkdl_tpu_torch' has no attribute {name!r}")
+    import importlib
+    value = getattr(importlib.import_module(module_name), attr)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))

@@ -1,0 +1,132 @@
+"""Shared conv building blocks — counterpart of
+``sparkdl_tpu/models/layers.py``.
+
+Modules take NCHW tensors (channels_last in memory on the main path: a
+permute of a contiguous NHWC tensor). Numerics follow the JAX package:
+the conv runs in the model dtype (bf16 by default) with float32
+parameters cast to it, BatchNorm runs in float32 on the conv output
+with flax's formula, and the result is cast back.
+
+Padding follows flax: ``"SAME"`` pads TF-style, with the odd pixel at
+the end when the total is odd (a stride-2 3×3 conv on 32 px pads
+``(0, 1)``), and SAME max-pooling pads with ``-inf``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Padding = Union[str, Sequence[Tuple[int, int]]]
+
+
+def same_pads(size: Sequence[int], window: Sequence[int],
+              strides: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+    """Per spatial dim ``(lo, hi)`` padding of flax/TF ``"SAME"``."""
+    pads = []
+    for n, k, s in zip(size, window, strides):
+        total = max((math.ceil(n / s) - 1) * s + k - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return tuple(pads)
+
+
+def _resolve_pads(x: torch.Tensor, padding: Padding, window, strides):
+    if padding == "SAME":
+        return same_pads(x.shape[2:], window, strides)
+    if padding == "VALID":
+        return ((0, 0), (0, 0))
+    return tuple((int(lo), int(hi)) for lo, hi in padding)
+
+
+def _pad(x: torch.Tensor, pads, value: float = 0.0):
+    """(padded x, symmetric padding left for the op) — a symmetric pad
+    goes to the op itself, an asymmetric one is applied here."""
+    (ph0, ph1), (pw0, pw1) = pads
+    if ph0 == ph1 and pw0 == pw1:
+        return x, (ph0, pw0)
+    return F.pad(x, (pw0, pw1, ph0, ph1), value=value), (0, 0)
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm in float32, flax's formula
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+
+    def __init__(self, features: int, eps: float = 1e-3):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = x.to(torch.float32) - self.running_mean.view(shape)
+        return y * mul.view(shape) + self.bias.view(shape)
+
+
+class ConvBN(nn.Module):
+    """Conv (no bias) + BatchNorm + optional ReLU — the ``conv2d_bn`` unit
+    every zoo CNN is built from."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel: Tuple[int, int] = (3, 3),
+                 strides: Tuple[int, int] = (1, 1),
+                 padding: Padding = "SAME", relu: bool = True,
+                 bn_epsilon: float = 1e-3,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.kernel = tuple(kernel)
+        self.strides = tuple(strides)
+        self.padding = padding
+        self.relu = relu
+        self.dtype = dtype
+        self.conv = nn.Conv2d(in_features, features, self.kernel,
+                              stride=self.strides, bias=False)
+        self.bn = BatchNorm(features, bn_epsilon)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, pad = _pad(x.to(self.dtype),
+                      _resolve_pads(x, self.padding, self.kernel,
+                                    self.strides))
+        y = F.conv2d(x, self.conv.weight.to(self.dtype),
+                     stride=self.strides, padding=pad)
+        y = self.bn(y).to(self.dtype)
+        return F.relu(y) if self.relu else y
+
+
+def max_pool(x: torch.Tensor, window=(3, 3), strides=(2, 2),
+             padding: Padding = "VALID") -> torch.Tensor:
+    x, pad = _pad(x, _resolve_pads(x, padding, window, strides),
+                  value=float("-inf"))
+    return F.max_pool2d(x, window, strides, padding=pad)
+
+
+def avg_pool(x: torch.Tensor, window=(3, 3), strides=(1, 1),
+             padding: Padding = "SAME") -> torch.Tensor:
+    """Average pooling that divides each window by its count of VALID
+    elements (``count_include_pad=False``), as TF/Keras SAME pooling and
+    the JAX package do."""
+    pads = _resolve_pads(x, padding, window, strides)
+    (ph0, ph1), (pw0, pw1) = pads
+    if ph0 == ph1 and pw0 == pw1:
+        return F.avg_pool2d(x, window, strides, padding=(ph0, pw0),
+                            count_include_pad=False)
+    # asymmetric: window sums over the zero-padded input divided by the
+    # window's count of real elements
+    ones = torch.ones_like(x[:, :1])
+    sums = F.avg_pool2d(F.pad(x, (pw0, pw1, ph0, ph1)), window, strides)
+    counts = F.avg_pool2d(F.pad(ones, (pw0, pw1, ph0, ph1)), window,
+                          strides)
+    return sums / counts
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """[N, C, H, W] → [N, C], in the input dtype (a bf16 mean, as the JAX
+    package's ``jnp.mean`` of a bf16 tensor)."""
+    return x.mean(dim=(2, 3))

@@ -1,0 +1,90 @@
+"""Shared param mixins — counterpart of ``sparkdl_tpu/params/shared.py``
+for the mixins this port's transformers use, plus ``HasDevice``."""
+
+from __future__ import annotations
+
+from sparkdl_tpu_torch.params.base import Param, Params, TypeConverters
+
+
+class HasInputCol(Params):
+    inputCol = Param("HasInputCol", "inputCol", "input column name",
+                     TypeConverters.toString)
+
+    def setInputCol(self, value: str):
+        return self._set(inputCol=value)
+
+    def getInputCol(self) -> str:
+        return self.getOrDefault("inputCol")
+
+
+class HasOutputCol(Params):
+    outputCol = Param("HasOutputCol", "outputCol", "output column name",
+                      TypeConverters.toString)
+
+    def setOutputCol(self, value: str):
+        return self._set(outputCol=value)
+
+    def getOutputCol(self) -> str:
+        return self.getOrDefault("outputCol")
+
+
+class HasBatchSize(Params):
+    """Device batch size of the runner; the tail batch is padded to it,
+    so the model always sees one batch shape."""
+
+    batchSize = Param("HasBatchSize", "batchSize", "device batch size",
+                      TypeConverters.toInt)
+
+    def setBatchSize(self, value: int):
+        return self._set(batchSize=value)
+
+    def getBatchSize(self) -> int:
+        return self.getOrDefault("batchSize")
+
+
+class HasDeviceResizeFrom(Params):
+    """Pack images at their uniform native (h, w) — host CPUs only
+    decode — and resize to the model's input size on the device, by the
+    CUDA resize kernel (``transformers/utils.py::deviceResizeModel``).
+    None keeps the host path."""
+
+    deviceResizeFrom = Param(
+        "HasDeviceResizeFrom", "deviceResizeFrom",
+        "(h, w) the images actually have; pack at that size and resize "
+        "on the device (None = images already at the model size)",
+        TypeConverters.toIntPairOrNone)
+
+    def setDeviceResizeFrom(self, value):
+        return self._set(deviceResizeFrom=value)
+
+    def getDeviceResizeFrom(self):
+        return self.getOrDefault("deviceResizeFrom")
+
+
+class HasDevice(Params):
+    """Where the model runs: None (the default) means ``"cuda"``, which
+    raises without a card; ``"cpu"`` must be asked for."""
+
+    device = Param("HasDevice", "device",
+                   "torch device for the model (None = 'cuda')",
+                   TypeConverters.toDevice)
+
+    def setDevice(self, value):
+        return self._set(device=value)
+
+    def getDevice(self):
+        return self.getOrDefault("device")
+
+
+class HasModelFunction(Params):
+    """The model param: a :class:`sparkdl_tpu_torch.graph.ModelFunction`."""
+
+    modelFunction = Param("HasModelFunction", "modelFunction",
+                          "ModelFunction (module + signature + device)",
+                          TypeConverters.toModelFunction)
+
+    def setModelFunction(self, value):
+        return self._set(modelFunction=value)
+
+    def getModelFunction(self):
+        return self.getOrDefault("modelFunction")

@@ -1,0 +1,79 @@
+"""ImageTransformer: apply a model function to an image column —
+counterpart of ``sparkdl_tpu/transformers/image_transform.py``.
+
+Two stages per partition: a host stage packs the image structs into
+uint8 NHWC, then a device stage runs the model through the batch runner
+and appends the output column."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from sparkdl_tpu_torch.data.frame import column
+from sparkdl_tpu_torch.data.tensors import append_tensor_column
+from sparkdl_tpu_torch.params import (
+    HasBatchSize,
+    HasDeviceResizeFrom,
+    HasInputCol,
+    HasModelFunction,
+    HasOutputCol,
+    Transformer,
+    keyword_only,
+)
+from sparkdl_tpu_torch.runtime.runner import RunnerMetrics
+from sparkdl_tpu_torch.transformers import utils as tfr_utils
+
+_PACKED_COL = "__sparkdl_tpu_torch_packed__"
+
+
+class ImageTransformer(Transformer, HasInputCol, HasOutputCol,
+                       HasModelFunction, HasBatchSize, HasDeviceResizeFrom):
+    """Applies a single-input ModelFunction (on its own device) to an
+    image struct column; the output column holds each row's output
+    flattened to a float32 vector (the JAX package's
+    ``outputMode="vector"``).
+
+    ``deviceResizeFrom=(H, W)``: the images are all H×W; the host packs
+    them as they are and the resize to the model's input size runs on
+    the device, by the CUDA resize kernel on the card."""
+
+    @keyword_only
+    def __init__(self, *, inputCol=None, outputCol=None, modelFunction=None,
+                 batchSize=64, deviceResizeFrom=None):
+        super().__init__()
+        self._setDefault(batchSize=64, deviceResizeFrom=None)
+        self._set(inputCol=inputCol, outputCol=outputCol,
+                  modelFunction=modelFunction, batchSize=batchSize,
+                  deviceResizeFrom=deviceResizeFrom)
+        self.metrics = RunnerMetrics()
+
+    def _transform(self, dataset):
+        mf = self.getModelFunction()
+        in_name, out_name = tfr_utils.single_io(mf)
+        shape, in_dtype = mf.input_signature[in_name]
+        if len(shape) != 3:
+            raise ValueError(f"model input must be HWC, got shape {shape}")
+        src_hw = self.getOrDefault("deviceResizeFrom")
+        if src_hw is not None:
+            mf = tfr_utils.deviceResizeModel(mf, src_hw)
+            shape, in_dtype = mf.input_signature[in_name]
+        h, w, c = shape
+        in_col = self.getInputCol()
+        out_col = self.getOutputCol()
+        runner = tfr_utils.make_runner(mf, self.getBatchSize(),
+                                       metrics=self.metrics)
+
+        def pack(batch):
+            arr = tfr_utils.packImageBatch(column(batch, in_col), h, w, c,
+                                           resize=src_hw is None)
+            if np.dtype(in_dtype) != np.uint8:
+                arr = arr.astype(in_dtype)
+            return append_tensor_column(batch, _PACKED_COL, arr)
+
+        def apply(batch):
+            out = runner.run({in_name: batch[_PACKED_COL]})[out_name]
+            batch = {k: v for k, v in batch.items() if k != _PACKED_COL}
+            return tfr_utils.appendModelOutput(batch, out_col, out)
+
+        return dataset.map_batches(pack, name="packImageBatch") \
+            .map_batches(apply, name=f"apply({mf.name})")

@@ -1,0 +1,275 @@
+"""The port's first slice end to end on the CPU: ``readImages`` →
+``DeepImageFeaturizer(deviceResizeFrom=...)`` through both packages on the
+same files and the same (committed TestNet) weights; the port's import
+closure; its refusal to run on the CPU unasked; and the runner and frame
+pieces the slice rests on."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# TestNet runs in float32 on both sides, through the same resize math,
+# so the features differ by the order of float32 sums: 1e-5 of their
+# largest magnitude. The exception is an image where the two resizes
+# round a pixel that sits at a tie (k + 0.5 up to float32 summation
+# order) to neighbouring uint8 counts (test_device_resize_rounds_like_jax):
+# a 1/255 step at a few of its 1024 input pixels, which moves its
+# features by at most TOL_FEATURES_TIE of the largest magnitude.
+TOL_FEATURES = 1e-5
+TOL_FEATURES_TIE = 2e-3
+# a float32 resize value this close to k + 0.5 is a tie
+TIE = 1e-4
+
+
+def resize_round_both(x, out_hw):
+    """(port uint8, JAX uint8, port float32) resize of NHWC uint8 ``x``,
+    each rounded half to even as the featurizer does."""
+    import jax.numpy as jnp
+    from sparkdl_tpu.ops import fused_resize_normalize as jax_resize
+    from sparkdl_tpu_torch.ops import fused_resize_normalize
+    from sparkdl_tpu_torch.transformers.utils import round_to_uint8
+    y = fused_resize_normalize(torch.from_numpy(x), out_hw)
+    ref = jnp.clip(jnp.round(jax_resize(x, out_hw)), 0, 255)
+    return (round_to_uint8(y).numpy(), np.asarray(ref.astype(jnp.uint8)),
+            y.numpy())
+
+
+@pytest.fixture(scope="module")
+def png_dir(tmp_path_factory):
+    """Uniform 40×56 PNGs (lossless, so both decoders agree) plus one
+    file that fails to decode."""
+    from PIL import Image
+    d = tmp_path_factory.mktemp("torch_slice_pngs")
+    rng = np.random.default_rng(7)
+    for i in range(10):
+        arr = rng.integers(0, 256, (40, 56, 3), dtype=np.uint8)
+        Image.fromarray(arr, "RGB").save(d / f"img_{i:02d}.png")
+    (d / "broken.png").write_bytes(b"not an image")
+    return str(d)
+
+
+@pytest.fixture(scope="module")
+def caches(tmp_path_factory):
+    """An empty JAX weight cache (so JAX loads its committed TestNet) and
+    a port cache seeded with those weights through the bridge."""
+    from sparkdl_tpu.models import zoo as jax_zoo
+    from sparkdl_tpu.models.fetcher import ModelFetcher as JaxFetcher
+    from sparkdl_tpu_torch.models.convert import flax_to_state_dict
+    from sparkdl_tpu_torch.models.fetcher import ModelFetcher
+    jax_dir = str(tmp_path_factory.mktemp("jax_cache"))
+    torch_dir = str(tmp_path_factory.mktemp("torch_cache"))
+    variables = jax_zoo.load_variables("TestNet", JaxFetcher(jax_dir))
+    ModelFetcher(torch_dir).put("TestNet.pt", flax_to_state_dict(variables))
+    return jax_dir, torch_dir
+
+
+@pytest.fixture
+def cache_env(caches, monkeypatch):
+    jax_dir, torch_dir = caches
+    monkeypatch.setenv("SPARKDL_TPU_MODEL_CACHE", jax_dir)
+    monkeypatch.setenv("SPARKDL_TPU_TORCH_MODEL_CACHE", torch_dir)
+
+
+def test_featurizer_matches_jax_end_to_end(png_dir, cache_env):
+    import sparkdl_tpu
+    import sparkdl_tpu_torch
+    from sparkdl_tpu.data.tensors import arrow_to_tensor
+    from sparkdl_tpu.models import zoo as jax_zoo
+    from sparkdl_tpu_torch.models import zoo
+
+    assert jax_zoo.weights_provenance("TestNet") == "committed"
+    assert zoo.weights_provenance("TestNet") == "cache"
+    kw = dict(inputCol="image", outputCol="features", modelName="TestNet",
+              deviceResizeFrom=(40, 56), batchSize=4)
+
+    ref_table = sparkdl_tpu.DeepImageFeaturizer(**kw).transform(
+        sparkdl_tpu.readImages(png_dir, numPartitions=3)).collect()
+    ref_paths = ref_table.column("filePath").to_pylist()
+    idx = ref_table.schema.get_field_index("features")
+    ref = arrow_to_tensor(ref_table.column(idx), ref_table.schema.field(idx))
+
+    featurizer = sparkdl_tpu_torch.DeepImageFeaturizer(device="cpu", **kw)
+    out = featurizer.transform(
+        sparkdl_tpu_torch.readImages(png_dir, numPartitions=3)).collect()
+    assert list(out["filePath"]) == ref_paths
+    assert len(ref_paths) == 10 and not any("broken" in p for p in ref_paths)
+    assert out["features"].shape == ref.shape == (10, 16)
+    assert out["features"].dtype == np.float32
+    from PIL import Image
+    x = np.stack([np.asarray(Image.open(p)) for p in ref_paths])
+    got_u8, ref_u8, _ = resize_round_both(x, (32, 32))
+    tie_rows = (got_u8 != ref_u8).any(axis=(1, 2, 3))
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(out["features"][~tie_rows], ref[~tie_rows],
+                               rtol=0, atol=TOL_FEATURES * scale)
+    np.testing.assert_allclose(out["features"], ref, rtol=0,
+                               atol=TOL_FEATURES_TIE * scale)
+    assert featurizer.metrics.rows == 10
+    assert featurizer.metrics.batches == 3  # partitions of 4, 3, 3 rows
+
+
+def test_device_resize_rounds_like_jax():
+    """The resize + round-half-even cast the featurizer puts before the
+    model gives the JAX package's uint8 image, except at ties: there the
+    two float32 sums may land on either side of k + 0.5, and the counts
+    differ by one."""
+    from sparkdl_tpu_torch.transformers.utils import round_to_uint8
+    x = np.random.default_rng(8).integers(0, 256, (6, 40, 56, 3),
+                                          dtype=np.uint8)
+    got, ref, y = resize_round_both(x, (32, 32))
+    diff = got.astype(int) - ref.astype(int)
+    assert np.abs(diff).max() <= 1
+    assert (np.abs(np.abs(y - np.floor(y)) - 0.5)[diff != 0] < TIE).all()
+    assert (diff != 0).mean() < 1e-3
+    halves = torch.tensor([0.5, 1.5, 2.5, -0.5, 254.5, 255.5, 300.0])
+    assert round_to_uint8(halves).tolist() == [0, 2, 2, 0, 254, 255, 255]
+
+
+def test_import_closure_and_chip_smoke_without_cuda():
+    """Importing the port and every submodule, and chip_smoke.py, loads
+    none of jax, flax, sparkdl_tpu, pyarrow, PIL or msgpack; and without
+    CUDA chip_smoke.py exits non-zero and prints nothing on stdout."""
+    code = (
+        "import contextlib, importlib, io, json, pkgutil, runpy, sys\n"
+        "import sparkdl_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    sparkdl_tpu_torch.__path__, 'sparkdl_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "smoke = runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
+        "banned = ('jax', 'flax', 'sparkdl_tpu', 'pyarrow', 'PIL', "
+        "'msgpack')\n"
+        "loaded = sorted(n for n in sys.modules\n"
+        "                if n.split('.')[0] in banned)\n"
+        "out = io.StringIO()\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    rc = smoke['main']()\n"
+        "print(json.dumps({'mods': mods, 'loaded': loaded, 'rc': rc,\n"
+        "                  'smoke_stdout': out.getvalue()}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "sparkdl_tpu_torch.transformers.named_image" in result["mods"]
+    assert result["loaded"] == []
+    assert result["rc"] != 0 and result["smoke_stdout"] == ""
+
+
+def test_default_device_raises_without_cuda(png_dir):
+    """``device=None`` means the card: with no CUDA every entry point
+    raises instead of running on the CPU."""
+    import sparkdl_tpu_torch
+    from sparkdl_tpu_torch._device import resolve_device
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.models import zoo
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        zoo.getModelFunction("TestNet")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelFunction(torch.nn.Identity(), {"x": ((1,), np.float32)},
+                      ["x"])
+    df = sparkdl_tpu_torch.readImages(png_dir)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sparkdl_tpu_torch.DeepImageFeaturizer(
+            inputCol="image", outputCol="f", modelName="TestNet",
+            deviceResizeFrom=(40, 56)).transform(df)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+class _Double(torch.nn.Module):
+    def forward(self, inputs):
+        return {"y": inputs["x"].to(torch.float32) * 2}
+
+
+@pytest.mark.parametrize("n,batch", [(10, 4), (8, 4), (3, 8)])
+def test_runner_pads_and_slabs(n, batch):
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.runtime.runner import BatchRunner
+    mf = ModelFunction(_Double(), {"x": ((2, 3), np.uint8)}, ["y"],
+                       device="cpu")
+    runner = BatchRunner(mf, batch_size=batch)
+    x = np.arange(n * 6, dtype=np.uint8).reshape(n, 2, 3)
+    out = runner.run({"x": x})["y"]
+    np.testing.assert_array_equal(out, x.astype(np.float32) * 2)
+    assert runner.metrics.rows == n
+    assert runner.metrics.batches == -(-n // batch)
+    assert runner.metrics.bytes_staged == x.nbytes
+    assert runner.run({"x": x[:0]})["y"].shape == (0, 2, 3)
+    with pytest.raises(ValueError, match="expects"):
+        runner.run({"x": np.zeros((2, 3, 3), np.uint8)})
+
+
+def test_frame_filter_collect_and_tensor():
+    from sparkdl_tpu_torch import DataFrame
+    rows = [{"name": f"r{i}", "v": i, "t": np.full(3, i, np.float32)}
+            for i in range(7)]
+    df = DataFrame.from_pylist(rows, num_partitions=3)
+    assert df.num_partitions == 3 and df.count() == 7
+    assert df.columns == ["name", "v", "t"]
+    odd = df.filter(lambda b: b["v"] % 2 == 1)
+    assert odd.count() == 3
+    assert [r["name"] for r in odd.collect_rows()] == ["r1", "r3", "r5"]
+    np.testing.assert_array_equal(df.tensor("t")[:, 0], np.arange(7))
+    doubled = df.map_batches(lambda b: {**b, "v": b["v"] * 2})
+    assert list(doubled.collect()["v"]) == [2 * i for i in range(7)]
+
+
+def test_image_struct_round_trip():
+    from sparkdl_tpu.image import imageIO as jax_io
+    from sparkdl_tpu_torch.image import imageIO
+    arr = np.random.default_rng(9).integers(0, 256, (5, 7, 3),
+                                            dtype=np.uint8)
+    s = imageIO.imageArrayToStruct(arr, origin="a.png")
+    assert s == jax_io.imageArrayToStruct(arr, origin="a.png")
+    np.testing.assert_array_equal(imageIO.imageStructToArray(s), arr)
+    gray = imageIO.imageArrayToStruct(arr[:, :, 0])
+    assert (gray["nChannels"], gray["mode"]) == (1, 0)
+
+
+def test_pack_refuses_off_size_rows():
+    from sparkdl_tpu_torch.data.frame import to_column
+    from sparkdl_tpu_torch.image.imageIO import imageArrayToStruct
+    from sparkdl_tpu_torch.transformers.utils import packImageBatch
+    col = to_column([imageArrayToStruct(np.zeros((4, 4, 3), np.uint8)),
+                     imageArrayToStruct(np.zeros((5, 4, 3), np.uint8))])
+    assert packImageBatch(col[:1], 4, 4).shape == (1, 4, 4, 3)
+    with pytest.raises(NotImplementedError, match="host resize"):
+        packImageBatch(col, 4, 4)
+    with pytest.raises(ValueError, match="row 1"):
+        packImageBatch(col, 4, 4, resize=False)
+
+
+class _MeanPixel(torch.nn.Module):
+    def forward(self, inputs):
+        return {"m": inputs["img"].to(torch.float32).mean(dim=(1, 2))}
+
+
+def test_image_transformer_float_input_model_with_device_resize():
+    """A user model declaring float32 input: the host packs uint8 as
+    float32 and the device resize output is handed over unrounded."""
+    from sparkdl_tpu_torch import DataFrame, ImageTransformer
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.image.imageIO import imageArrayToStruct
+    from sparkdl_tpu_torch.ops import fused_resize_normalize
+    imgs = np.random.default_rng(10).integers(0, 256, (5, 12, 10, 3),
+                                              dtype=np.uint8)
+    df = DataFrame.from_pylist(
+        [{"image": imageArrayToStruct(a)} for a in imgs], num_partitions=2)
+    mf = ModelFunction(_MeanPixel(), {"img": ((6, 4, 3), np.float32)},
+                       ["m"], device="cpu")
+    out = ImageTransformer(inputCol="image", outputCol="m",
+                           modelFunction=mf, batchSize=2,
+                           deviceResizeFrom=(12, 10)).transform(df)
+    got = out.tensor("m")
+    ref = fused_resize_normalize(torch.from_numpy(imgs).float(), (6, 4))
+    np.testing.assert_allclose(got, ref.mean(dim=(1, 2)).numpy(),
+                               rtol=1e-6, atol=1e-5)
