@@ -6,9 +6,9 @@
 Phases, one JSON line each on stdout:
 
 1. ``env``       — the card (nvidia-smi name and power limit), torch, CUDA.
-2. ``build``     — builds every CUDA kernel of the port from the checkout's
-                   sources (one nvcc process per source, all at once).
-3. ``kernel``    — holds each kernel against its plain PyTorch version on
+2. ``build``     — builds the port's CUDA kernel from the checkout's
+                   source with nvcc.
+3. ``kernel``    — holds the kernel against its plain PyTorch version on
                    the card at the main path's shape and a few others, and
                    times kernel, plain version and the PyTorch library call
                    that computes the same function (CUDA events, warm).
@@ -16,11 +16,11 @@ Phases, one JSON line each on stdout:
                    ``DeepImageFeaturizer(modelName="InceptionV3",
                    deviceResizeFrom=(512, 512))`` over a ``DataFrame`` of
                    512 seeded 512×512 RGB images in 8 partitions: a cold
-                   run, then the main run, with every kernel launch count
+                   run, then the main run, with the kernel's launch count
                    set to 0 just before it and read just after;
                    cross-checks one batch against the plain resize
                    feeding the same model.
-5. ``kernels``   — per kernel: launches on the main path and pass/fail.
+5. ``kernels``   — the kernel's launches on the main path and pass/fail.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -29,19 +29,17 @@ The weights are seeded-random (no download): the features are checked
 for shape, finiteness and agreement, not for meaning.
 """
 
-import importlib
 import json
 import os
 import subprocess
 import sys
 import time
 
-# kernel name → (wrapper module, source in the repo, the TPU kernel it replaces)
-KERNELS = {
-    "resize_normalize": ("sparkdl_tpu_torch.ops.infeed",
-                         "sparkdl_tpu_torch/ops/csrc/resize_normalize.cu",
-                         "sparkdl_tpu/ops/infeed.py:96"),
-}
+# the port's one CUDA kernel: its source in the repo, and the TPU kernel
+# it replaces
+KERNEL = "resize_normalize"
+KERNEL_SOURCE = "sparkdl_tpu_torch/ops/csrc/resize_normalize.cu"
+KERNEL_REPLACES = "sparkdl_tpu/ops/infeed.py:96"
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s and
 # fp32 (non-tensor-core) FLOP/s
@@ -91,20 +89,18 @@ def time_ms(fn, iters=20, warmup=3):
 
 def resize_bound_ms(x, out, infeed):
     """Least time for the resize on this card: the larger of its bytes
-    (input, weights and bands read once, output written once) over HBM
-    bandwidth and its banded fp32 operations over the fp32 peak."""
+    (input read once, output written once) over HBM bandwidth and its
+    fp32 operations on this geometry's nonzero weights over the fp32
+    peak."""
     n, src_h, src_w, c = x.shape
     h, w = out.shape[1:3]
     taps = []
-    weight_bytes = 0
     for src, dst in ((src_h, h), (src_w, w)):
-        mat = infeed.bilinear_weight_matrix(src, dst)
-        lo, hi = infeed.weight_bands(mat)
+        lo, hi = infeed.weight_bands(infeed.bilinear_weight_matrix(src, dst))
         taps.append(int((hi - lo).sum()))
-        weight_bytes += mat.nbytes + lo.nbytes + hi.nbytes
     macs = n * src_w * c * taps[0] + n * h * c * taps[1]
     flops = 2 * macs + 2 * out.numel()
-    nbytes = x.numel() * x.element_size() + out.numel() * 4 + weight_bytes
+    nbytes = x.numel() * x.element_size() + out.numel() * out.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -193,17 +189,15 @@ def featurize(torch, np, smi_line):
     runs = []
     for run in ("cold", "main"):
         if run == "main":
-            # the counted run: every count 0 just before, read just after
-            for module, _, _ in KERNELS.values():
-                importlib.import_module(module).launches = 0
+            # the counted run: the count is 0 just before, read just after
+            infeed.launches = 0
         t0 = time.perf_counter()
         planned = featurizer.transform(df)   # builds the model function
         t1 = time.perf_counter()
         out = planned.collect()              # runs the plan
         torch.cuda.synchronize()
         runs.append((time.perf_counter() - t0, out, t1 - t0))
-    counts = {name: importlib.import_module(module).launches
-              for name, (module, _, _) in KERNELS.items()}
+    launches = infeed.launches
 
     feats = [np.asarray(o["features"]) for _, o, _ in runs]
     for f in feats:
@@ -237,7 +231,7 @@ def featurize(torch, np, smi_line):
     emit("featurize", model="InceptionV3", images=N_IMAGES,
          partitions=PARTITIONS, batch=BATCH, source_hw=[512, 512],
          features_shape=list(feats[1].shape), finite=True,
-         launches=counts, setup_s=setup_s, cold_s=runs[0][0],
+         launches={KERNEL: launches}, setup_s=setup_s, cold_s=runs[0][0],
          warm_s=warm_s, warm_images_per_s=N_IMAGES / warm_s,
          warm_model_build_s=runs[1][2],
          warm_collect_images_per_s=N_IMAGES / (warm_s - runs[1][2]),
@@ -249,7 +243,7 @@ def featurize(torch, np, smi_line):
              "rows", "batches", "seconds", "bytes_staged", "bytes_copied",
              "transfer_wait_seconds")},
          card=smi_line)
-    return counts
+    return launches
 
 
 def main():
@@ -276,32 +270,27 @@ def main():
          count=torch.cuda.device_count(), python=sys.version.split()[0])
 
     t0 = time.perf_counter()
-    seconds = _build.build(KERNELS)
-    emit("build", seconds=seconds, wall_s=time.perf_counter() - t0,
-         ptxas={k: [ln for ln in _build.build_logs.get(k, "").splitlines()
-                    if "registers" in ln or "spill" in ln]
-                for k in KERNELS})
+    log = _build.build(KERNEL, ptxas_report=True)
+    emit("build", name=KERNEL, seconds=time.perf_counter() - t0,
+         ptxas=[ln for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln])
 
     cases, main_err, timing = check_resize_kernel(torch, infeed)
     emit("kernel", name="resize_normalize", cases=cases, card=smi,
          **timing)
 
-    counts = featurize(torch, np, smi)
+    launches = featurize(torch, np, smi)
 
-    kernels = []
-    for name, (_, source, replaces) in KERNELS.items():
-        launched = counts[name] > 0
-        emit("kernels", name=name, launches=counts[name], passed=launched)
-        if not launched:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[name],
-            "max_abs_err": main_err, "ms": timing["ms"],
-            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-            "bound_by": timing["bound_by"],
-            "library_ms": timing["library_ms"]})
+    emit("kernels", name=KERNEL, launches=launches, passed=launches > 0)
+    if launches == 0:
+        raise AssertionError(f"kernel {KERNEL} was not launched on the "
+                             "main path")
+    kernels = [{
+        "name": KERNEL, "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": KERNEL_REPLACES, "launches": launches,
+        "max_abs_err": main_err, "ms": timing["ms"],
+        "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"]}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,19 +16,16 @@ import os
 import shutil
 import subprocess
 import threading
-import time
-from typing import Dict, Iterable, List
+from typing import Dict
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "ops", "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-# nvcc's output (ptxas register and shared-memory report) per kernel
-build_logs: Dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -53,39 +50,27 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
-def build(names: Iterable[str]) -> Dict[str, float]:
-    """Compile every named source whose library is missing, one nvcc
-    process each, all started together. Returns seconds per name built
-    (0.0 where the library already existed); raises with nvcc's output
-    if any compile fails."""
-    names = list(names)
+def build(name: str, ptxas_report: bool = False) -> str:
+    """Compile ``csrc/<name>.cu`` unless its library exists. Returns
+    nvcc's output ("" when nothing was built); with ``ptxas_report`` it
+    holds ptxas's register and spill report. Raises with nvcc's output
+    if the compile fails."""
+    out = library_path(name)
+    if os.path.exists(out):
+        return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs: List[tuple] = []
-    seconds: Dict[str, float] = {}
-    for name in names:
-        out = library_path(name)
-        if os.path.exists(out):
-            seconds[name] = 0.0
-            continue
-        tmp = f"{out}.tmp.{os.getpid()}"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC_DIR, f"{name}.cu")]
-        procs.append((name, out, tmp, time.perf_counter(),
-                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT,
-                                       text=True)))
-    failed = []
-    for name, out, tmp, t0, proc in procs:
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        build_logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-            continue
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
-    return seconds
+    tmp = f"{out}.tmp.{os.getpid()}"
+    # -Xptxas=-v changes only what nvcc prints, not the library
+    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if ptxas_report
+                                       else []),
+           "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"CUDA build of {name} failed: nvcc exited "
+                           f"{proc.returncode}\n{proc.stdout}")
+    os.replace(tmp, out)
+    return proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -93,7 +78,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            build([name])
+            build(name)
             lib = ctypes.CDLL(library_path(name))
             _loaded[name] = lib
         return lib
