@@ -9,9 +9,16 @@ Phases, one JSON line each on stdout:
 2. ``build``     — builds the port's CUDA kernel from the checkout's
                    source with nvcc.
 3. ``kernel``    — holds the kernel against its plain PyTorch version on
-                   the card at the main path's shape and a few others, and
-                   times kernel, plain version and the PyTorch library call
-                   that computes the same function (CUDA events, warm).
+                   the card at the main path's shape and a few others
+                   (a phone-photo downscale, unaligned rows), times each
+                   case beside its bound with its launch configuration
+                   (grid, threads, shared memory, blocks per SM), times
+                   kernel, plain version and the PyTorch library call that
+                   computes the same function at the main shape (CUDA
+                   events, warm; the kernel's calls replayed from a CUDA
+                   graph, so its time is the device's and not the
+                   wrapper's), and the kernel at each band height at the
+                   main and the phone-photo shapes.
 4. ``featurize`` — drives the main path through its public entry points:
                    ``DeepImageFeaturizer(modelName="InceptionV3",
                    deviceResizeFrom=(512, 512))`` over a ``DataFrame`` of
@@ -72,16 +79,27 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters=20, warmup=3):
+def time_ms(fn, iters=20, warmup=3, graph=False):
+    """Mean ms of one ``fn()`` on the card, by CUDA events around
+    ``iters`` warm calls. With ``graph`` the calls are captured into one
+    CUDA graph and replayed, so the time is the device's alone and not
+    the Python wrapper's (a short kernel otherwise waits on the host)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    run = lambda: [fn() for _ in range(iters)]  # noqa: E731
+    if graph:
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            run()
+        run = captured.replay
+        run()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    run()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -107,6 +125,17 @@ def resize_bound_ms(x, out, infeed):
                                  else "operations"), nbytes, flops
 
 
+def kernel_speed(infeed, x, out_hw, out):
+    """The kernel's time on ``x`` beside its bound, and how it launches."""
+    ms = time_ms(lambda: infeed.fused_resize_normalize(x, out_hw),
+                 graph=True)
+    bound_ms, bound_by, nbytes, _ = resize_bound_ms(x, out, infeed)
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "achieved_gb_per_s": nbytes / ms * 1e-6,
+            "bound_share": bound_ms / ms,
+            "launch": infeed.launch_config(x, out_hw)}
+
+
 def check_resize_kernel(torch, infeed):
     import torch.nn.functional as F
     gen = torch.Generator().manual_seed(0)
@@ -118,9 +147,15 @@ def check_resize_kernel(torch, infeed):
          BOUND_COUNTS),
         ("fp32_input", (4, 64, 48, 3), (33, 71), 1.0, 0.0, torch.float32,
          BOUND_COUNTS),
+        # phone photos to model size: the plan tiles columns
+        ("large_downscale", (2, 3024, 4032, 3), MAIN_OUT, 1.0, 0.0,
+         torch.uint8, BOUND_COUNTS),
+        # rows of 57 bytes: no 16-byte alignment, one channel
+        ("unaligned_c1", (3, 41, 57, 1), (24, 33), 1.0, 0.0, torch.uint8,
+         BOUND_COUNTS),
     ]
     results = []
-    main_x = None
+    inputs = {}
     for name, shape, out_hw, scale, offset, dtype, bound in cases:
         x = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
         if dtype == torch.float32:
@@ -133,14 +168,16 @@ def check_resize_kernel(torch, infeed):
         ok = bool(torch.isfinite(got).all().item()) and err <= bound
         results.append({"case": name, "shape": list(shape),
                         "out_hw": list(out_hw), "dtype": str(dtype),
-                        "max_abs_err": err, "bound": bound, "ok": ok})
+                        "max_abs_err": err, "bound": bound, "ok": ok,
+                        **kernel_speed(infeed, x, out_hw, got)})
         if not ok:
             raise AssertionError(f"resize kernel case {name}: max|diff| "
                                  f"{err} > {bound}")
+        inputs[name] = (x, out_hw)
         if name == "main":
-            main_x, main_err = x, err
+            main_err = err
 
-    x = main_x
+    x = inputs["main"][0]
     xf = x.float().permute(0, 3, 1, 2)   # NCHW view, channels_last memory
 
     def kernel():
@@ -153,17 +190,44 @@ def check_resize_kernel(torch, infeed):
         return F.interpolate(xf, size=MAIN_OUT, mode="bilinear",
                              antialias=True, align_corners=False)
 
-    # in turns: plain, kernel, kernel, plain (one card, one call)
-    p1, k1, k2, p2 = (time_ms(plain), time_ms(kernel), time_ms(kernel),
-                      time_ms(plain))
+    # in turns: plain, kernel, kernel, plain (one card, one call); the
+    # kernel from a CUDA graph (device time), and once more eagerly
+    # through the wrapper (host time included); the plain version copies
+    # its weights from the host, which a graph cannot capture
+    p1, k1, k2, p2 = (time_ms(plain), time_ms(kernel, graph=True),
+                      time_ms(kernel, graph=True), time_ms(plain))
+    eager_ms = time_ms(kernel)
     lib_ms = time_ms(library)
     lib_err = (library().permute(0, 2, 3, 1) - plain()).abs().max().item()
     out = kernel()
     bound_ms, bound_by, nbytes, flops = resize_bound_ms(x, out, infeed)
-    timing = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+    ms = (k1 + k2) / 2
+    # the band height: the default against the others the kernel is built
+    # for, each with its launch configuration
+    rows_sweep = {}
+    default_rows = infeed.ROWS
+    try:
+        for name in ("main", "large_downscale"):
+            xs, hw = inputs[name]
+            rows_sweep[name] = []
+            for rows in (2, 4, 8):
+                infeed.ROWS = rows
+                rows_sweep[name].append({
+                    "rows": rows, "default": rows == default_rows,
+                    "ms": time_ms(lambda: infeed.fused_resize_normalize(
+                        xs, hw), graph=True),
+                    **infeed.launch_config(xs, hw)})
+    finally:
+        infeed.ROWS = default_rows
+    timing = {"ms": ms, "plain_ms": (p1 + p2) / 2,
               "library_ms": lib_ms, "bound_ms": bound_ms,
               "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+              "achieved_gb_per_s": nbytes / ms * 1e-6,
+              "bound_share": bound_ms / ms,
+              "launch": infeed.launch_config(x, MAIN_OUT),
               "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
+              "eager_ms": eager_ms,
+              "rows_sweep": rows_sweep,
               "library_max_abs_diff_vs_plain": lib_err}
     return results, main_err, timing
 
@@ -271,9 +335,11 @@ def main():
 
     t0 = time.perf_counter()
     log = _build.build(KERNEL, ptxas_report=True)
+    # per kernel: its (mangled) name, then its spills and registers
     emit("build", name=KERNEL, seconds=time.perf_counter() - t0,
-         ptxas=[ln for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln])
+         ptxas=[ln.strip() for ln in log.splitlines()
+                if "entry function" in ln or "registers" in ln
+                or "spill" in ln])
 
     cases, main_err, timing = check_resize_kernel(torch, infeed)
     emit("kernel", name="resize_normalize", cases=cases, card=smi,

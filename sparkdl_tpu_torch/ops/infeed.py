@@ -16,8 +16,10 @@ Two implementations of the same function:
 * :func:`fused_resize_normalize_plain` — two fp32 einsums in PyTorch. The
   CPU path, and the reference the CUDA kernel is held to on the card.
 * the CUDA kernel ``csrc/resize_normalize.cu`` — replaces the Pallas TPU
-  kernel ``sparkdl_tpu/ops/infeed.py::_kernel``. Built with nvcc at first
-  use (``ops/_build.py``) and bound with ctypes.
+  kernel ``sparkdl_tpu/ops/infeed.py::_kernel``: one launch per call, both
+  passes fused, laid out by :func:`resize_plan` (band weights, tiling and
+  shared memory per geometry). Built with nvcc at first use
+  (``ops/_build.py``) and bound with ctypes.
 
 :func:`fused_resize_normalize` picks by the input's device: a CPU tensor
 goes to the plain version, a CUDA tensor to the kernel, which launches
@@ -29,12 +31,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 KERNEL = "resize_normalize"
+THREADS = 256             # threads per block, as kThreads in the kernel
 
 # kernel launches made by fused_resize_normalize (one per call on a CUDA
 # tensor); reset and read by callers that prove the kernel ran
@@ -101,29 +104,208 @@ def fused_resize_normalize_plain(x: torch.Tensor, out_hw: Tuple[int, int],
     return out * scale + offset
 
 
-@functools.lru_cache(maxsize=8)
-def _device_weights(src_h: int, h: int, src_w: int, w: int,
-                    device: torch.device):
-    """Weight matrices and their bands on ``device``, built once per
-    resize geometry (the main path calls with one geometry per run)."""
-    out = []
-    for src, dst in ((src_h, h), (src_w, w)):
-        mat = bilinear_weight_matrix(src, dst)
-        lo, hi = weight_bands(mat)
-        out += [torch.as_tensor(a, device=device) for a in (mat, lo, hi)]
-    return tuple(out)
+# Launch plan of the CUDA kernel. A work item is a band of ``rows`` output
+# rows by a tile of ``tile_w`` output columns of one image. The kernel is
+# persistent: each block walks a contiguous run of items (bands fastest),
+# streaming their source rows, cut to the tile's column span, through one
+# ring of ``depth`` rows of ``pitch`` bytes in shared memory; a band that
+# continues the one before loads only the rows it adds, and the rows of
+# the next ``ahead`` items are in flight while one is computed. Each item's
+# row pass fills an fp32 tile ``t[rows, pitch / itemsize]`` there from the
+# band's table of row weights (``band_table``), and its column pass writes
+# the output from ``t``. ``_smem_bytes`` and ``smem_bytes`` in
+# csrc/resize_normalize.cu lay shared memory out alike.
+ROWS = 4                  # output rows per band (chip_smoke.py sweeps 2..8)
+AHEAD = 1                 # items in flight behind the one computed (or 0)
+KERNEL_ROWS = (1, 2, 4, 8)   # the band heights the kernel is built for
+SMEM_BUDGET = 100 * 1024  # per block: at least two blocks on each SM
+SMEM_MAX = 232448         # the most one block may have on Hopper (227 KB)
 
 
-def _launcher():
+class ResizePlan(NamedTuple):
+    h_weights: np.ndarray  # [h, h_taps] fp32: row y's weights from h_lo[y]
+    h_lo: np.ndarray       # [h] int32 first source row of output row y
+    h_hi: np.ndarray       # [h] int32 one past its last
+    w_weights: np.ndarray  # [w, w_taps] fp32, the same per output column
+    w_lo: np.ndarray
+    w_hi: np.ndarray
+    rows: int              # output rows per band
+    tile_w: int            # output columns per tile
+    bands: np.ndarray      # [bands, 2] source rows [rs, re) of each band
+    band_table: np.ndarray  # [bands, span, rows] fp32: weight of source
+    #                         row rs + i for output row band * rows + k
+    tiles: np.ndarray      # [tiles, 2] source columns [cs, ce) of each tile
+    ahead: int             # items in flight behind the one computed
+    depth: int             # source rows the ring holds
+    pitch: int             # bytes of one ring slot (a multiple of 16)
+    smem: int              # dynamic shared memory of one block, bytes
+
+
+def band_weights(w: np.ndarray) -> Tuple[np.ndarray, np.ndarray,
+                                          np.ndarray]:
+    """The nonzero band of each row of a [dst, src] weight matrix as
+    ``(weights [dst, taps], lo, hi)``: ``weights[y, k] == w[y, lo[y] + k]``
+    for ``k < hi[y] - lo[y]`` and 0 past it; ``taps`` is the widest band."""
+    lo, hi = weight_bands(w)
+    taps = int((hi - lo).max())
+    idx = lo[:, None] + np.arange(taps)[None, :]
+    inside = idx < hi[:, None]
+    vals = np.take_along_axis(w, np.minimum(idx, w.shape[1] - 1), axis=1)
+    return np.where(inside, vals, 0).astype(np.float32), lo, hi
+
+
+def _spans(lo: np.ndarray, hi: np.ndarray, step: int) -> np.ndarray:
+    """[blocks, 2] source span [lo[first], hi[last]) of each run of
+    ``step`` outputs (lo and hi never decrease along the outputs)."""
+    first = np.arange(0, len(lo), step)
+    last = np.minimum(first + step, len(lo)) - 1
+    return np.stack([lo[first], hi[last]], axis=1).astype(np.int32)
+
+
+def _band_table(w: np.ndarray, lo: np.ndarray, hi: np.ndarray,
+                rows: int, bands: np.ndarray) -> np.ndarray:
+    """The row weights as the kernel reads them: for each band, each of
+    its source rows and each of its output rows, the weight (0 where the
+    source row is not among that output row's taps, or past the image)."""
+    span = int((bands[:, 1] - bands[:, 0]).max())
+    table = np.zeros((len(bands), span, rows), np.float32)
+    for y in range(len(lo)):
+        b, k = divmod(y, rows)
+        i = lo[y] - bands[b, 0]
+        table[b, i:i + hi[y] - lo[y], k] = w[y, :hi[y] - lo[y]]
+    return table
+
+
+def _smem_bytes(rows: int, depth: int, pitch: int, itemsize: int) -> int:
+    # the ring, then t
+    return depth * pitch + rows * (pitch // itemsize) * 4
+
+
+def resize_plan(src_h: int, h: int, src_w: int, w: int, c: int,
+                smem_budget: int = SMEM_BUDGET, rows: int = ROWS,
+                itemsize: int = 1) -> ResizePlan:
+    """The CUDA kernel's launch plan for one geometry (``itemsize`` 1 for
+    uint8 input, 4 for float32): band weights per axis, and the tiling
+    that fits ``smem_budget``: the tallest band from ``rows`` down, then
+    ``AHEAD`` items in flight if they fit (else none), then the fewest
+    column tiles. The ring holds the item being computed and the items in
+    flight after it, ``ahead + 1`` band spans at most; a band's span
+    follows the row taps and a tile's the column taps, so a larger source
+    gets shorter bands or narrower tiles, not more shared memory. Raises
+    ValueError for a downscale so steep that one output row and column do
+    not fit."""
+    if rows not in KERNEL_ROWS:
+        raise ValueError(f"rows must be one of {KERNEL_ROWS}, got {rows}")
+    hw_, h_lo, h_hi = band_weights(bilinear_weight_matrix(src_h, h))
+    ww_, w_lo, w_hi = band_weights(bilinear_weight_matrix(src_w, w))
+    # within the budget if it can be; else whatever one block may have
+    for budget in sorted({min(smem_budget, SMEM_MAX), SMEM_MAX}):
+        for r, a in ((r, a)
+                     for r in KERNEL_ROWS[:KERNEL_ROWS.index(rows) + 1][::-1]
+                     for a in (AHEAD, 0)):
+            bands = _spans(h_lo, h_hi, r)
+            depth = (a + 1) * int((bands[:, 1] - bands[:, 0]).max())
+            last_tile_w = 0
+            for n_tiles in range(1, w + 1):
+                tile_w = -(-w // n_tiles)
+                if tile_w == last_tile_w:
+                    continue
+                last_tile_w = tile_w
+                tiles = _spans(w_lo, w_hi, tile_w)
+                span = int((tiles[:, 1] - tiles[:, 0]).max())
+                # a slot keeps its row's 16-byte alignment: up to 15
+                # bytes before the row
+                pitch = -(-(15 + span * c * itemsize) // 16) * 16
+                smem = _smem_bytes(r, depth, pitch, itemsize)
+                if smem <= budget:
+                    return ResizePlan(
+                        hw_, h_lo, h_hi, ww_, w_lo, w_hi, r, tile_w, bands,
+                        _band_table(hw_, h_lo, h_hi, r, bands), tiles, a,
+                        depth, pitch, smem)
+    raise ValueError(
+        f"resize {src_h}x{src_w} -> {h}x{w} (C={c}) needs more than "
+        f"{SMEM_MAX} bytes of shared memory per block")
+
+
+def _library():
     from sparkdl_tpu_torch.ops import _build
     lib = _build.load(KERNEL)
     fn = lib.resize_normalize_launch
     if not fn.argtypes:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, i, p, p, p, p, p, p, p, p,
-                       i, i, i, i, i, i, f, f, p]
+        fn.argtypes = [p, i, ctypes.c_longlong,
+                       p, p, p, i, p, p, p, p,
+                       i, i, i, i, i, i,
+                       i, i, i, i, i, i, i, f, f, p]
         fn.restype = ctypes.c_int
-    return fn
+        lib.resize_normalize_smem.argtypes = [i] * 4
+        lib.resize_normalize_smem.restype = ctypes.c_int
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.resize_normalize_occupancy.argtypes = [i, i, i, ip, ip, ip]
+        lib.resize_normalize_occupancy.restype = ctypes.c_int
+    return lib
+
+
+def _occupancy(lib, plan: ResizePlan, x_is_u8: int,
+               device: torch.device) -> Tuple[int, int, int]:
+    """(blocks per SM, registers, local bytes per thread) of the kernel
+    that runs ``plan``, as the card reports them."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        err = lib.resize_normalize_occupancy(
+            x_is_u8, plan.rows, plan.smem, *(ctypes.byref(v) for v in vals))
+    if err != 0 or vals[0].value < 1:
+        raise RuntimeError(f"{KERNEL}: no block of {plan.smem} bytes of "
+                           f"shared memory fits an SM (CUDA error {err})")
+    return vals[0].value, vals[1].value, vals[2].value
+
+
+@functools.lru_cache(maxsize=8)
+def _device_plan(src_h: int, h: int, src_w: int, w: int, c: int,
+                 itemsize: int, rows: int, device: torch.device):
+    """The plan, its band arrays on ``device`` and how many blocks the
+    card holds at once (the persistent grid's size), built once per
+    geometry (the main path calls with one geometry per run)."""
+    plan = resize_plan(src_h, h, src_w, w, c, rows=rows, itemsize=itemsize)
+    # the kernel reads the row weights per band, and the column weights
+    # transposed, [w_taps, w], with zero taps up to a multiple of 4
+    w_taps = -(-plan.w_weights.shape[1] // 4) * 4
+    ww_t = np.zeros((w_taps, w), np.float32)
+    ww_t[:plan.w_weights.shape[1]] = plan.w_weights.T
+    arrays = tuple(torch.as_tensor(a, device=device) for a in (
+        plan.band_table, plan.h_lo, plan.h_hi, ww_t, plan.w_lo, plan.w_hi))
+    per_sm, _, _ = _occupancy(_library(), plan, int(itemsize == 1), device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return plan, arrays, per_sm * sms
+
+
+def _grid(plan: ResizePlan, n: int, slots: int) -> int:
+    return min(n * len(plan.tiles) * len(plan.bands), slots)
+
+
+def launch_config(x: torch.Tensor, out_hw: Tuple[int, int]) -> dict:
+    """How :func:`fused_resize_normalize` launches the kernel for ``x``
+    (a CUDA tensor): the plan's tiling, grid and threads, the shared
+    memory the kernel's own layout needs, and what the card reports for
+    it (blocks per SM, registers, local memory per thread)."""
+    n, src_h, src_w, c = x.shape
+    h, w = _check_input(x, out_hw)
+    plan, _, slots = _device_plan(src_h, h, src_w, w, c, x.element_size(),
+                                  ROWS, x.device)
+    lib = _library()
+    u8 = int(x.dtype == torch.uint8)
+    smem = lib.resize_normalize_smem(u8, plan.rows, plan.depth, plan.pitch)
+    if smem != plan.smem:
+        raise RuntimeError(f"plan reserves {plan.smem} bytes of shared "
+                           f"memory, the kernel lays out {smem}")
+    per_sm, regs, local = _occupancy(lib, plan, u8, x.device)
+    return {"grid": [_grid(plan, n, slots), 1, 1], "threads": THREADS,
+            "items": n * len(plan.tiles) * len(plan.bands),
+            "smem_bytes": plan.smem, "rows": plan.rows,
+            "tile_w": plan.tile_w, "tiles": len(plan.tiles),
+            "ahead": plan.ahead, "depth": plan.depth, "pitch": plan.pitch,
+            "blocks_per_sm": per_sm, "registers": regs,
+            "local_bytes": local}
 
 
 def fused_resize_normalize(x: torch.Tensor, out_hw: Tuple[int, int],
@@ -133,9 +315,10 @@ def fused_resize_normalize(x: torch.Tensor, out_hw: Tuple[int, int],
     bilinear resize then ``y * scale + offset``.
 
     A CPU tensor goes to :func:`fused_resize_normalize_plain`. A CUDA
-    tensor goes to the CUDA kernel on the current stream; the wrapper
-    raises on a non-contiguous input or a refused launch, and never
-    falls back to the plain version."""
+    tensor goes to the CUDA kernel on the current stream, one launch per
+    call, with bands of up to ``ROWS`` output rows; the wrapper raises on
+    a non-contiguous input, a geometry the plan cannot tile, or a refused
+    launch, and never falls back to the plain version."""
     global launches
     h, w = _check_input(x, out_hw)
     if x.device.type == "cpu":
@@ -146,23 +329,23 @@ def fused_resize_normalize(x: torch.Tensor, out_hw: Tuple[int, int],
         raise ValueError("the CUDA resize kernel needs a contiguous input")
     n, src_h, src_w, c = x.shape
     # built first: raises for a zero source dim, as the plain version does
-    wh, h_lo, h_hi, ww, w_lo, w_hi = _device_weights(
-        src_h, h, src_w, w, x.device)
+    plan, (bw, h_lo, h_hi, ww_, w_lo, w_hi), slots = _device_plan(
+        src_h, h, src_w, w, c, x.element_size(), ROWS, x.device)
     out = torch.empty((n, h, w, c), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    # fp32 row-pass scratch [N, h, W, C], read back by the column pass
-    tmp = torch.empty((n, h, src_w, c), dtype=torch.float32,
-                      device=x.device)
-    fn = _launcher()
+    fn = _library().resize_normalize_launch
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), int(x.dtype == torch.uint8),
-                 wh.data_ptr(), h_lo.data_ptr(), h_hi.data_ptr(),
-                 ww.data_ptr(), w_lo.data_ptr(), w_hi.data_ptr(),
-                 tmp.data_ptr(), out.data_ptr(),
-                 n, src_h, src_w, c, h, w, float(scale), float(offset),
-                 stream)
+                 x.numel() * x.element_size(),
+                 bw.data_ptr(), h_lo.data_ptr(), h_hi.data_ptr(),
+                 bw.shape[1], ww_.data_ptr(), w_lo.data_ptr(),
+                 w_hi.data_ptr(), out.data_ptr(),
+                 n, src_h, src_w, c, h, w,
+                 plan.rows, plan.tile_w, plan.ahead, plan.depth, plan.pitch,
+                 plan.smem, _grid(plan, n, slots), float(scale),
+                 float(offset), stream)
     if err != 0:
         raise RuntimeError(
             f"{KERNEL} kernel launch failed with CUDA error {err}")

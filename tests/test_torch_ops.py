@@ -6,6 +6,9 @@ Pallas kernel in interpret mode (as tests/test_ops.py runs it).
 The CUDA kernel itself runs only on the card; ``chip_smoke.py`` holds it
 against the plain version tested here."""
 
+import itertools
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -91,3 +94,238 @@ def test_wrapper_rejects_other_dtypes_and_ranks():
     with pytest.raises(ValueError):
         infeed.fused_resize_normalize(torch.zeros(1, 4, 4, 3,
                                                   dtype=torch.uint8), (0, 2))
+
+
+# The CUDA kernel's launch plan (``resize_plan``): band weights, tiling and
+# shared memory, checked on the CPU. The geometries: the main path, an
+# upscale, the identity, the small cases, and phone photos to 299.
+PLAN_GEOMETRIES = [
+    ((512, 512), (299, 299)), ((150, 150), (299, 299)),
+    ((299, 299), (299, 299)), ((40, 40), (24, 24)), ((56, 56), (32, 32)),
+    ((3024, 3024), (299, 299)), ((4032, 4032), (299, 299)),
+    ((3024, 4032), (299, 299)),
+]
+PLAN_IDS = [f"{s[0]}x{s[1]}to{d[0]}x{d[1]}" for s, d in PLAN_GEOMETRIES]
+
+
+def _plan(geometry, c, **kw):
+    (src_h, src_w), (h, w) = geometry
+    return infeed.resize_plan(src_h, h, src_w, w, c, **kw)
+
+
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("geometry", PLAN_GEOMETRIES, ids=PLAN_IDS)
+def test_plan_stages_every_nonzero_weight(geometry, c):
+    plan = _plan(geometry, c)
+    (src_h, src_w), (h, w) = geometry
+    for src, dense, lo, hi, step, spans in (
+            (src_h, infeed.bilinear_weight_matrix(src_h, h), plan.h_lo,
+             plan.h_hi, plan.rows, plan.bands),
+            (src_w, infeed.bilinear_weight_matrix(src_w, w), plan.w_lo,
+             plan.w_hi, plan.tile_w, plan.tiles)):
+        block = np.arange(len(lo)) // step
+        assert len(spans) == block[-1] + 1
+        start, stop = spans[block, 0], spans[block, 1]
+        assert (0 <= start).all() and (stop <= src).all()
+        staged = ((np.arange(src)[None, :] >= start[:, None])
+                  & (np.arange(src)[None, :] < stop[:, None]))
+        assert not dense[~staged].any()
+    # the ring holds the band being computed and the ahead bands in flight
+    assert 0 <= plan.ahead <= infeed.AHEAD
+    assert plan.depth >= (plan.ahead + 1) * int(np.ptp(plan.bands,
+                                                       axis=1).max())
+    # a ring slot holds the widest tile's row with up to 15 bytes before it
+    assert plan.pitch % 16 == 0
+    assert plan.pitch >= 15 + int(np.ptp(plan.tiles, axis=1).max()) * c
+
+
+@pytest.mark.parametrize("geometry", PLAN_GEOMETRIES, ids=PLAN_IDS)
+def test_plan_band_weights_equal_dense_inside_band(geometry):
+    plan = _plan(geometry, 3)
+    (src_h, src_w), (h, w) = geometry
+    # the kernel's per-band table of row weights
+    dense = infeed.bilinear_weight_matrix(src_h, h)
+    for b, (rs, re) in enumerate(plan.bands):
+        rows = dense[b * plan.rows:(b + 1) * plan.rows, rs:re].T
+        table = plan.band_table[b, :re - rs, :len(rows.T)]
+        np.testing.assert_array_equal(table, rows)
+        assert not plan.band_table[b, re - rs:].any()
+        assert not plan.band_table[b, :, len(rows.T):].any()
+    for dense, band, lo, hi in (
+            (infeed.bilinear_weight_matrix(src_h, h), plan.h_weights,
+             plan.h_lo, plan.h_hi),
+            (infeed.bilinear_weight_matrix(src_w, w), plan.w_weights,
+             plan.w_lo, plan.w_hi)):
+        assert band.dtype == np.float32
+        assert band.shape == (dense.shape[0], int((hi - lo).max()))
+        for y in range(dense.shape[0]):
+            taps = hi[y] - lo[y]
+            np.testing.assert_array_equal(band[y, :taps],
+                                          dense[y, lo[y]:hi[y]])
+            assert not band[y, taps:].any()
+            assert not dense[y, :lo[y]].any() and not dense[y, hi[y]:].any()
+
+
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("geometry", PLAN_GEOMETRIES, ids=PLAN_IDS)
+def test_plan_shared_memory_fits_the_budget(geometry, c):
+    for itemsize in (1, 4):
+        plan = _plan(geometry, c, itemsize=itemsize)
+        assert plan.smem <= infeed.SMEM_BUDGET <= infeed.SMEM_MAX
+        assert plan.smem == infeed._smem_bytes(plan.rows, plan.depth,
+                                               plan.pitch, itemsize)
+
+
+@pytest.mark.parametrize("c", [1, 3])
+def test_plan_shared_memory_does_not_grow_with_the_source(c):
+    # the same output and budget from ever wider sources: the tiles narrow
+    plans = [infeed.resize_plan(512, 299, src_w, 299, c)
+             for src_w in (512, 1024, 2048, 4032, 8064)]
+    assert all(p.smem <= infeed.SMEM_BUDGET for p in plans)
+    assert plans[0].tile_w == 299 and len(plans[0].tiles) == 1
+    assert [p.tile_w for p in plans] == sorted(
+        (p.tile_w for p in plans), reverse=True)
+
+
+def test_plan_main_path_is_one_tile_per_band():
+    plan = infeed.resize_plan(512, 299, 512, 299, 3)
+    assert (plan.rows, plan.tile_w, len(plan.tiles)) == (infeed.ROWS, 299, 1)
+    assert len(plan.bands) == -(-299 // infeed.ROWS)
+
+
+def _run_plan(x, plan, out_hw, scale, offset, grid):
+    """The CUDA kernel's schedule in numpy, for ``grid`` persistent
+    blocks: each walks its contiguous run of items (image, tile, band;
+    bands fastest), loading into ring slots only the source rows an item
+    adds to the band before it, ``ahead`` items in front of the compute,
+    which finds the item's rows where the loader put them. Every tap
+    checks that its slot still holds its own row; row and column passes
+    accumulate in fp32 over ascending sources."""
+    n, _, _, c = x.shape
+    h, w = out_hw
+    n_bands, n_tiles = len(plan.bands), len(plan.tiles)
+    items = n * n_tiles * n_bands
+    out = np.full((n, h, w, c), np.nan, np.float32)
+
+    def decode(i):
+        band, rest = i % n_bands, i // n_bands
+        tile, img = rest % n_tiles, rest // n_tiles
+        y0, x0 = band * plan.rows, tile * plan.tile_w
+        return (img, tile, band, y0, min(plan.rows, h - y0), x0,
+                min(plan.tile_w, w - x0))
+
+    def advance(run, i, first, item):
+        _, _, band, y0, rows, _, _ = item
+        ve = plan.h_hi[y0 + rows - 1]
+        if band > 0 and i > first:
+            vb = plan.h_hi[y0 - 1]
+        else:
+            run["v0"] = vb = plan.h_lo[y0]
+            run["slot0"] = run["next"]
+        run["next"] = (run["slot0"] + ve - run["v0"]) % plan.depth
+        return vb, ve
+
+    def slot(run, v):
+        return (run["slot0"] + v - run["v0"]) % plan.depth
+
+    for b in range(grid):
+        first, last = items * b // grid, items * (b + 1) // grid
+        ring = [None] * plan.depth
+        run = {"v0": 0, "slot0": 0, "next": 0}
+        loads = iter(range(first, last))
+        placed = []  # (item, ring slot of its band's first row), in order
+
+        def load_next():
+            i = next(loads, None)
+            if i is not None:
+                item = decode(i)
+                img, tile = item[:2]
+                cs, ce = plan.tiles[tile]
+                for v in range(*advance(run, i, first, item)):
+                    ring[slot(run, v)] = ((img, tile, v), x[
+                        img, v, cs:ce].astype(np.float32))
+                band = item[3] // plan.rows
+                placed.append((item, slot(run, plan.bands[band, 0])))
+
+        for _ in range(plan.ahead):
+            load_next()
+        for _ in range(first, last):
+            load_next()
+            (img, tile, band, y0, rows, x0, cols), slot0 = placed.pop(0)
+            cs, ce = plan.tiles[tile]
+            vlo = plan.bands[band, 0]
+            t = np.zeros((plan.rows, ce - cs, c), np.float32)
+            for v in range(vlo, plan.bands[band, 1]):
+                held, row = ring[(slot0 + v - vlo) % plan.depth]
+                assert held == (img, tile, v)
+                t += plan.band_table[band, v - vlo][:, None, None] * row
+            for xl in range(cols):
+                xo = x0 + xl
+                acc = np.zeros((rows, c), np.float32)
+                for j in range(plan.w_hi[xo] - plan.w_lo[xo]):
+                    acc += (plan.w_weights[xo, j]
+                            * t[:rows, plan.w_lo[xo] - cs + j])
+                out[img, y0:y0 + rows, xo] = (acc * np.float32(scale)
+                                              + offset)
+    return out
+
+
+# (input shape, output hw, scale, offset, input dtype, plan options): the
+# chip smoke's small cases, and two downscales with a budget so small that
+# the plan tiles columns (the first also shortens its bands and loads no
+# item ahead)
+SCHEDULE_CASES = [
+    ((3, 40, 56, 3), (24, 32), 1 / 127.5, -1.0, np.uint8, {}),
+    ((3, 41, 57, 1), (24, 33), 1.0, 0.0, np.uint8, {}),
+    ((1, 30, 30, 1), (61, 61), 1.0, 0.0, np.uint8, {}),
+    ((2, 17, 17, 3), (17, 17), 1.0, 0.0, np.uint8, {}),
+    ((2, 64, 48, 3), (33, 71), 1.0, 0.0, np.float32, {}),
+    ((1, 200, 260, 3), (23, 29), 1.0, 0.0, np.uint8,
+     {"smem_budget": 4096, "rows": 8}),
+    ((2, 90, 70, 3), (31, 23), 1 / 127.5, -1.0, np.uint8,
+     {"smem_budget": 6144, "rows": 8}),
+]
+
+
+@pytest.mark.parametrize(
+    "shape,out_hw,scale,offset,dtype,opts", SCHEDULE_CASES,
+    ids=[f"{'x'.join(map(str, c[0]))}to{c[1][0]}x{c[1][1]}"
+         for c in SCHEDULE_CASES])
+def test_plan_schedule_reproduces_plain(shape, out_hw, scale, offset,
+                                        dtype, opts):
+    x = _input(shape, dtype)
+    plan = infeed.resize_plan(shape[1], out_hw[0], shape[2], out_hw[1],
+                              shape[3], itemsize=np.dtype(dtype).itemsize,
+                              **opts)
+    if opts:  # the budget forces column tiles
+        assert len(plan.tiles) > 1
+    ref = infeed.fused_resize_normalize_plain(torch.from_numpy(x), out_hw,
+                                              scale, offset).numpy()
+    tol = TOL_UNIT if scale != 1.0 else TOL_COUNTS
+    items = shape[0] * len(plan.tiles) * len(plan.bands)
+    # one block walks every item; a few blocks split runs mid-image; one
+    # block an item
+    for grid in sorted({1, min(3, items), items}):
+        got = _run_plan(x, plan, out_hw, scale, offset, grid)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=tol)
+
+
+def test_plan_rejects_unbuilt_band_heights_and_too_steep_downscales():
+    with pytest.raises(ValueError):
+        infeed.resize_plan(512, 299, 512, 299, 3, rows=3)
+    with pytest.raises(ValueError):
+        infeed.resize_plan(30000, 200, 30000, 200, 3)
+
+
+def test_build_hash_covers_included_csrc_files(tmp_path, monkeypatch):
+    from sparkdl_tpu_torch.ops import _build
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n'
+                                   '#include "k.cuh"\nint f();\n')
+    (tmp_path / "k.cuh").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    assert [os.path.basename(p) for p in _build.sources("k")] == [
+        "k.cu", "k.cuh", "common.cuh"]
+    before = _build.library_path("k")
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    assert _build.library_path("k") != before
