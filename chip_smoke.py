@@ -10,15 +10,19 @@ Phases, one JSON line each on stdout:
                    source with nvcc.
 3. ``kernel``    — holds the kernel against its plain PyTorch version on
                    the card at the main path's shape and a few others
-                   (a phone-photo downscale, unaligned rows), times each
-                   case beside its bound with its launch configuration
-                   (grid, threads, shared memory, blocks per SM), times
-                   kernel, plain version and the PyTorch library call that
-                   computes the same function at the main shape (CUDA
-                   events, warm; the kernel's calls replayed from a CUDA
-                   graph, so its time is the device's and not the
-                   wrapper's), and the kernel at each band height at the
-                   main and the phone-photo shapes.
+                   (a phone-photo downscale, unaligned rows, tall images
+                   whose plans take shorter bands), times each case
+                   beside its bound with its launch configuration (grid,
+                   threads, shared memory, blocks per SM), times kernel,
+                   plain version and the PyTorch library call that
+                   computes the same function at the main shape, and
+                   checks and times the kernel at each band height it is
+                   built for at the main and the phone-photo shapes.
+                   Times are CUDA events around warm calls: ``ms`` is
+                   the eager call through the Python wrapper, as kernel,
+                   plain version and library are all timed;
+                   ``device_ms`` is the kernel's calls replayed from a
+                   CUDA graph, the device's time without the host's.
 4. ``featurize`` — drives the main path through its public entry points:
                    ``DeepImageFeaturizer(modelName="InceptionV3",
                    deviceResizeFrom=(512, 512))`` over a ``DataFrame`` of
@@ -81,14 +85,19 @@ def nvidia_smi():
 
 def time_ms(fn, iters=20, warmup=3, graph=False):
     """Mean ms of one ``fn()`` on the card, by CUDA events around
-    ``iters`` warm calls. With ``graph`` the calls are captured into one
-    CUDA graph and replayed, so the time is the device's alone and not
-    the Python wrapper's (a short kernel otherwise waits on the host)."""
+    ``iters`` warm calls, each result dropped before the next call (so
+    the allocator reuses one output). With ``graph`` the calls are
+    captured into one CUDA graph and replayed, so the time is the
+    device's alone and not the Python wrapper's (a short kernel otherwise
+    waits on the host)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    run = lambda: [fn() for _ in range(iters)]  # noqa: E731
+
+    def run():
+        for _ in range(iters):
+            fn()
     if graph:
         captured = torch.cuda.CUDAGraph()
         with torch.cuda.graph(captured):
@@ -125,15 +134,23 @@ def resize_bound_ms(x, out, infeed):
                                  else "operations"), nbytes, flops
 
 
+def speed(bound_ms, nbytes, ms, device_ms):
+    """A kernel time (eager, and from a graph) beside its bound."""
+    return {"ms": ms, "device_ms": device_ms, "bound_ms": bound_ms,
+            "achieved_gb_per_s": nbytes / ms * 1e-6,
+            "device_gb_per_s": nbytes / device_ms * 1e-6,
+            "bound_share": bound_ms / ms,
+            "device_bound_share": bound_ms / device_ms}
+
+
 def kernel_speed(infeed, x, out_hw, out):
     """The kernel's time on ``x`` beside its bound, and how it launches."""
-    ms = time_ms(lambda: infeed.fused_resize_normalize(x, out_hw),
-                 graph=True)
+    def call():
+        return infeed.fused_resize_normalize(x, out_hw)
     bound_ms, bound_by, nbytes, _ = resize_bound_ms(x, out, infeed)
-    return {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "achieved_gb_per_s": nbytes / ms * 1e-6,
-            "bound_share": bound_ms / ms,
-            "launch": infeed.launch_config(x, out_hw)}
+    return {**speed(bound_ms, nbytes, time_ms(call),
+                    time_ms(call, graph=True)),
+            "bound_by": bound_by, "launch": infeed.launch_config(x, out_hw)}
 
 
 def check_resize_kernel(torch, infeed):
@@ -152,6 +169,12 @@ def check_resize_kernel(torch, infeed):
          torch.uint8, BOUND_COUNTS),
         # rows of 57 bytes: no 16-byte alignment, one channel
         ("unaligned_c1", (3, 41, 57, 1), (24, 33), 1.0, 0.0, torch.uint8,
+         BOUND_COUNTS),
+        # steep vertical downscales: bands of 2 rows within the 100 KB
+        # budget, and of 1 row in up to 227 KB
+        ("tall_rows2", (1, 6000, 16, 1), (8, 16), 1.0, 0.0, torch.uint8,
+         BOUND_COUNTS),
+        ("tall_rows1", (1, 10000, 64, 3), (8, 32), 1.0, 0.0, torch.uint8,
          BOUND_COUNTS),
     ]
     results = []
@@ -173,7 +196,7 @@ def check_resize_kernel(torch, infeed):
         if not ok:
             raise AssertionError(f"resize kernel case {name}: max|diff| "
                                  f"{err} > {bound}")
-        inputs[name] = (x, out_hw)
+        inputs[name] = (x, out_hw, bound)
         if name == "main":
             main_err = err
 
@@ -190,44 +213,43 @@ def check_resize_kernel(torch, infeed):
         return F.interpolate(xf, size=MAIN_OUT, mode="bilinear",
                              antialias=True, align_corners=False)
 
-    # in turns: plain, kernel, kernel, plain (one card, one call); the
-    # kernel from a CUDA graph (device time), and once more eagerly
-    # through the wrapper (host time included); the plain version copies
-    # its weights from the host, which a graph cannot capture
-    p1, k1, k2, p2 = (time_ms(plain), time_ms(kernel, graph=True),
-                      time_ms(kernel, graph=True), time_ms(plain))
-    eager_ms = time_ms(kernel)
+    # in turns: plain, kernel, kernel, plain (one card, one call), all
+    # eager through their Python entry points; then the kernel from a
+    # CUDA graph (device time; the plain version copies its weights from
+    # the host, which a graph cannot capture), and the library call
+    p1, k1, k2, p2 = (time_ms(plain), time_ms(kernel), time_ms(kernel),
+                      time_ms(plain))
+    d1, d2 = time_ms(kernel, graph=True), time_ms(kernel, graph=True)
     lib_ms = time_ms(library)
     lib_err = (library().permute(0, 2, 3, 1) - plain()).abs().max().item()
     out = kernel()
     bound_ms, bound_by, nbytes, flops = resize_bound_ms(x, out, infeed)
-    ms = (k1 + k2) / 2
+    ms, device_ms = (k1 + k2) / 2, (d1 + d2) / 2
     # the band height: the default against the others the kernel is built
-    # for, each with its launch configuration
+    # for, each held to the plain version and with its launch configuration
     rows_sweep = {}
-    default_rows = infeed.ROWS
-    try:
-        for name in ("main", "large_downscale"):
-            xs, hw = inputs[name]
-            rows_sweep[name] = []
-            for rows in (2, 4, 8):
-                infeed.ROWS = rows
-                rows_sweep[name].append({
-                    "rows": rows, "default": rows == default_rows,
-                    "ms": time_ms(lambda: infeed.fused_resize_normalize(
-                        xs, hw), graph=True),
-                    **infeed.launch_config(xs, hw)})
-    finally:
-        infeed.ROWS = default_rows
-    timing = {"ms": ms, "plain_ms": (p1 + p2) / 2,
-              "library_ms": lib_ms, "bound_ms": bound_ms,
+    for name in ("main", "large_downscale"):
+        xs, hw, bound = inputs[name]
+        ref = infeed.fused_resize_normalize_plain(xs, hw)
+        rows_sweep[name] = []
+        for rows in infeed.KERNEL_ROWS:
+            def call():
+                return infeed._launch(xs, *hw, 1.0, 0.0, rows)
+            err = (call() - ref).abs().max().item()
+            rows_sweep[name].append({
+                "rows": rows, "default": rows == infeed.ROWS,
+                "max_abs_err": err, "bound": bound,
+                "device_ms": time_ms(call, graph=True),
+                **infeed.launch_config(xs, hw, rows)})
+            if not err <= bound:
+                raise AssertionError(f"resize kernel, {name} at {rows} rows "
+                                     f"a band: max|diff| {err} > {bound}")
+    timing = {**speed(bound_ms, nbytes, ms, device_ms),
+              "plain_ms": (p1 + p2) / 2, "library_ms": lib_ms,
               "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-              "achieved_gb_per_s": nbytes / ms * 1e-6,
-              "bound_share": bound_ms / ms,
               "launch": infeed.launch_config(x, MAIN_OUT),
-              "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
-              "eager_ms": eager_ms,
-              "rows_sweep": rows_sweep,
+              "ms_runs": [k1, k2], "device_ms_runs": [d1, d2],
+              "plain_ms_runs": [p1, p2], "rows_sweep": rows_sweep,
               "library_max_abs_diff_vs_plain": lib_err}
     return results, main_err, timing
 
@@ -355,7 +377,8 @@ def main():
         "name": KERNEL, "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
         "max_abs_err": main_err, "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+        "device_ms": timing["device_ms"], "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"]}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -3,10 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher. It is
 compiled by nvcc for Hopper (``sm_90a``) at first use into
 ``sparkdl_tpu_torch/_build/`` — a directory git ignores — under a name
-that carries a hash of the source, the ``csrc`` files it includes and
-the flags, so an edited source or header is rebuilt and a stale library
-is never loaded. The library is loaded with ctypes; callers declare each
-function's argtypes.
+that carries a hash of every ``csrc`` file and of the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. The
+library is loaded with ctypes; callers declare each function's argtypes.
 """
 
 from __future__ import annotations
@@ -14,11 +13,10 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, List
+from typing import Dict
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "ops", "csrc")
@@ -45,36 +43,14 @@ def find_nvcc() -> str:
         "are built from source at first use")
 
 
-_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
-
-
-def sources(name: str) -> List[str]:
-    """``csrc/<name>.cu`` and every file of ``csrc/`` it includes with
-    ``#include "..."``, directly or through another, in the order met."""
-    found: List[str] = []
-    todo = [os.path.join(CSRC_DIR, f"{name}.cu")]
-    while todo:
-        path = todo.pop(0)
-        if path in found:
-            continue
-        found.append(path)
-        with open(path, "rb") as f:
-            text = f.read()
-        for inc in _INCLUDE.findall(text):
-            dep = os.path.normpath(os.path.join(os.path.dirname(path),
-                                                inc.decode()))
-            if os.path.exists(dep):
-                todo.append(dep)
-    return found
-
-
 def library_path(name: str) -> str:
     """Where the library of ``name`` goes: its name carries a hash of the
-    source, of each csrc file it includes, and of the flags."""
+    flags and of every file in ``csrc/`` (so any header the source may
+    include is covered)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources(name):
-        with open(path, "rb") as f:
-            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+    for entry in sorted(os.listdir(CSRC_DIR)):
+        with open(os.path.join(CSRC_DIR, entry), "rb") as f:
+            digest.update(entry.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

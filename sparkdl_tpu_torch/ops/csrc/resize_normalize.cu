@@ -30,8 +30,8 @@
 //   where the tensor's own edge cuts a 16-byte chunk, or where the row stride
 //   is not a multiple of 16 bytes and rows would land at different
 //   alignments). A band that continues the previous one loads only the rows
-//   it adds, so rows shared by neighbouring bands are read once. The rows of
-//   the next `ahead` items are in flight while an item is computed.
+//   it adds, so rows shared by neighbouring bands are read once. The next
+//   item's rows are in flight while an item is computed.
 // * Row pass: each thread takes 8 neighbouring uint8 elements (or 4 floats)
 //   of the staged rows and walks the band's source rows once, converting
 //   each element once. One vector load from a per-band table [band, source
@@ -78,7 +78,7 @@ struct Args {
   const int* w_hi;
   float* out;
   int H, W, C, h, w;
-  int tile_w, tiles, bands, ahead, depth, pitch;
+  int tile_w, tiles, bands, depth, pitch;
   long long items;
   float scale, offset;
 };
@@ -286,10 +286,10 @@ __global__ void __launch_bounds__(kThreads, R <= 4 ? 3 : 2)
     }
   };
 
-  // The loader runs `ahead` (0 or 1) items in front of the compute; each
-  // item's copies are one group, so waiting until `ahead` groups are in
-  // flight means the item about to be computed has landed. The compute
-  // takes each item's place from the loader.
+  // The loader runs one item in front of the compute; each item's copies
+  // are one group, so waiting until one group is in flight means the item
+  // about to be computed has landed. The compute takes each item's place
+  // from the loader.
   Run run = {0, 0, 0};
   Item load_item = start;
   int64_t next_load = first;
@@ -304,23 +304,17 @@ __global__ void __launch_bounds__(kThreads, R <= 4 ? 3 : 2)
     cp_async_commit();
     return s;
   };
-  Span pending = {};
-  if (a.ahead) pending = load_next();
+  Span pending = load_next();
 
   // the column pass's thread-to-(column, channel) map advances by
   // kThreads elements: dx columns and dc channels
   const int dx = kThreads / C;
   const int dc = kThreads - dx * C;
   for (int64_t i = first; i < last; ++i) {
-    // item i + ahead, into slots no item in flight holds
-    const Span loaded = load_next();
-    const Span s = a.ahead ? pending : loaded;
-    pending = loaded;
-    if (a.ahead) {
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    // item i + 1, into slots items i and i + 1 do not share
+    const Span s = pending;
+    pending = load_next();
+    cp_async_wait<1>();
     __syncthreads();  // item i's rows visible; t free of item i - 1
 
     // Row pass: t[k][e] = sum over output row y0 + k's taps, in ascending
@@ -468,20 +462,20 @@ extern "C" int resize_normalize_occupancy(int x_is_u8, int rows, int smem,
 }
 
 // Launches the kernel once on `stream` with `grid` persistent blocks;
-// returns cudaGetLastError() (0 = launched). The plan (rows, tile_w, ahead,
-// depth, pitch, smem) comes from infeed.py::resize_plan; out must hold
+// returns cudaGetLastError() (0 = launched). The plan (rows, tile_w, depth,
+// pitch, smem) comes from infeed.py::resize_plan; out must hold
 // n*h*w*C floats; x is contiguous.
 extern "C" int resize_normalize_launch(
     const void* x, int x_is_u8, long long x_bytes, const float* hw,
     const int* h_lo, const int* h_hi, int band_span, const float* ww,
     const int* w_lo, const int* w_hi, float* out, int n, int H,
-    int W, int C, int h, int w, int rows, int tile_w, int ahead, int depth,
-    int pitch, int smem, int grid, float scale, float offset, void* stream) {
+    int W, int C, int h, int w, int rows, int tile_w, int depth, int pitch,
+    int smem, int grid, float scale, float offset, void* stream) {
   const Kernel k = kernel_for(x_is_u8, rows);
   const int tiles = (w + tile_w - 1) / tile_w;
   const int bands = (h + rows - 1) / rows;
   if (k == nullptr || grid < 1 || smem > kMaxSmem || pitch % 16 != 0 ||
-      depth < 1 || ahead < 0 || ahead > 1 ||
+      depth < 1 ||
       smem != smem_bytes(x_is_u8 ? 1 : 4, rows, depth, pitch)) {
     return (int)cudaErrorInvalidConfiguration;
   }
@@ -506,7 +500,6 @@ extern "C" int resize_normalize_launch(
   a.tile_w = tile_w;
   a.tiles = tiles;
   a.bands = bands;
-  a.ahead = ahead;
   a.depth = depth;
   a.pitch = pitch;
   a.items = (long long)n * tiles * bands;

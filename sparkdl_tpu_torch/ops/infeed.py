@@ -109,15 +109,19 @@ def fused_resize_normalize_plain(x: torch.Tensor, out_hw: Tuple[int, int],
 # persistent: each block walks a contiguous run of items (bands fastest),
 # streaming their source rows, cut to the tile's column span, through one
 # ring of ``depth`` rows of ``pitch`` bytes in shared memory; a band that
-# continues the one before loads only the rows it adds, and the rows of
-# the next ``ahead`` items are in flight while one is computed. Each item's
-# row pass fills an fp32 tile ``t[rows, pitch / itemsize]`` there from the
-# band's table of row weights (``band_table``), and its column pass writes
-# the output from ``t``. ``_smem_bytes`` and ``smem_bytes`` in
+# continues the one before loads only the rows it adds, and the next
+# item's rows are in flight while one is computed. Each item's row pass
+# fills an fp32 tile ``t[rows, pitch / itemsize]`` there from the band's
+# table of row weights (``band_table``), and its column pass writes the
+# output from ``t``. ``_smem_bytes`` and ``smem_bytes`` in
 # csrc/resize_normalize.cu lay shared memory out alike.
-ROWS = 4                  # output rows per band (chip_smoke.py sweeps 2..8)
-AHEAD = 1                 # items in flight behind the one computed (or 0)
-KERNEL_ROWS = (1, 2, 4, 8)   # the band heights the kernel is built for
+# output rows per band: the fastest at the main path's shape on an H100
+# (chip_smoke.py's band-height sweep)
+ROWS = 4
+# the band heights the kernel is built for: those the plan picks (ROWS,
+# or a shorter band for a steep vertical downscale), and 8, which only
+# chip_smoke.py's band-height sweep launches
+KERNEL_ROWS = (1, 2, 4, 8)
 SMEM_BUDGET = 100 * 1024  # per block: at least two blocks on each SM
 SMEM_MAX = 232448         # the most one block may have on Hopper (227 KB)
 
@@ -135,7 +139,6 @@ class ResizePlan(NamedTuple):
     band_table: np.ndarray  # [bands, span, rows] fp32: weight of source
     #                         row rs + i for output row band * rows + k
     tiles: np.ndarray      # [tiles, 2] source columns [cs, ce) of each tile
-    ahead: int             # items in flight behind the one computed
     depth: int             # source rows the ring holds
     pitch: int             # bytes of one ring slot (a multiple of 16)
     smem: int              # dynamic shared memory of one block, bytes
@@ -187,9 +190,8 @@ def resize_plan(src_h: int, h: int, src_w: int, w: int, c: int,
     """The CUDA kernel's launch plan for one geometry (``itemsize`` 1 for
     uint8 input, 4 for float32): band weights per axis, and the tiling
     that fits ``smem_budget``: the tallest band from ``rows`` down, then
-    ``AHEAD`` items in flight if they fit (else none), then the fewest
-    column tiles. The ring holds the item being computed and the items in
-    flight after it, ``ahead + 1`` band spans at most; a band's span
+    the fewest column tiles. The ring holds the item being computed and
+    the one in flight after it, two band spans at most; a band's span
     follows the row taps and a tile's the column taps, so a larger source
     gets shorter bands or narrower tiles, not more shared memory. Raises
     ValueError for a downscale so steep that one output row and column do
@@ -200,11 +202,9 @@ def resize_plan(src_h: int, h: int, src_w: int, w: int, c: int,
     ww_, w_lo, w_hi = band_weights(bilinear_weight_matrix(src_w, w))
     # within the budget if it can be; else whatever one block may have
     for budget in sorted({min(smem_budget, SMEM_MAX), SMEM_MAX}):
-        for r, a in ((r, a)
-                     for r in KERNEL_ROWS[:KERNEL_ROWS.index(rows) + 1][::-1]
-                     for a in (AHEAD, 0)):
+        for r in KERNEL_ROWS[:KERNEL_ROWS.index(rows) + 1][::-1]:
             bands = _spans(h_lo, h_hi, r)
-            depth = (a + 1) * int((bands[:, 1] - bands[:, 0]).max())
+            depth = 2 * int((bands[:, 1] - bands[:, 0]).max())
             last_tile_w = 0
             for n_tiles in range(1, w + 1):
                 tile_w = -(-w // n_tiles)
@@ -220,7 +220,7 @@ def resize_plan(src_h: int, h: int, src_w: int, w: int, c: int,
                 if smem <= budget:
                     return ResizePlan(
                         hw_, h_lo, h_hi, ww_, w_lo, w_hi, r, tile_w, bands,
-                        _band_table(hw_, h_lo, h_hi, r, bands), tiles, a,
+                        _band_table(hw_, h_lo, h_hi, r, bands), tiles,
                         depth, pitch, smem)
     raise ValueError(
         f"resize {src_h}x{src_w} -> {h}x{w} (C={c}) needs more than "
@@ -236,7 +236,7 @@ def _library():
         fn.argtypes = [p, i, ctypes.c_longlong,
                        p, p, p, i, p, p, p, p,
                        i, i, i, i, i, i,
-                       i, i, i, i, i, i, i, f, f, p]
+                       i, i, i, i, i, i, f, f, p]
         fn.restype = ctypes.c_int
         lib.resize_normalize_smem.argtypes = [i] * 4
         lib.resize_normalize_smem.restype = ctypes.c_int
@@ -283,15 +283,16 @@ def _grid(plan: ResizePlan, n: int, slots: int) -> int:
     return min(n * len(plan.tiles) * len(plan.bands), slots)
 
 
-def launch_config(x: torch.Tensor, out_hw: Tuple[int, int]) -> dict:
-    """How :func:`fused_resize_normalize` launches the kernel for ``x``
-    (a CUDA tensor): the plan's tiling, grid and threads, the shared
-    memory the kernel's own layout needs, and what the card reports for
-    it (blocks per SM, registers, local memory per thread)."""
+def launch_config(x: torch.Tensor, out_hw: Tuple[int, int],
+                  rows: int = ROWS) -> dict:
+    """How the kernel launches for ``x`` (a CUDA tensor) with bands of up
+    to ``rows`` output rows: the plan's tiling, grid and threads, the
+    shared memory the kernel's own layout needs, and what the card
+    reports for it (blocks per SM, registers, local memory per thread)."""
     n, src_h, src_w, c = x.shape
     h, w = _check_input(x, out_hw)
     plan, _, slots = _device_plan(src_h, h, src_w, w, c, x.element_size(),
-                                  ROWS, x.device)
+                                  rows, x.device)
     lib = _library()
     u8 = int(x.dtype == torch.uint8)
     smem = lib.resize_normalize_smem(u8, plan.rows, plan.depth, plan.pitch)
@@ -303,7 +304,7 @@ def launch_config(x: torch.Tensor, out_hw: Tuple[int, int]) -> dict:
             "items": n * len(plan.tiles) * len(plan.bands),
             "smem_bytes": plan.smem, "rows": plan.rows,
             "tile_w": plan.tile_w, "tiles": len(plan.tiles),
-            "ahead": plan.ahead, "depth": plan.depth, "pitch": plan.pitch,
+            "depth": plan.depth, "pitch": plan.pitch,
             "blocks_per_sm": per_sm, "registers": regs,
             "local_bytes": local}
 
@@ -319,18 +320,26 @@ def fused_resize_normalize(x: torch.Tensor, out_hw: Tuple[int, int],
     call, with bands of up to ``ROWS`` output rows; the wrapper raises on
     a non-contiguous input, a geometry the plan cannot tile, or a refused
     launch, and never falls back to the plain version."""
-    global launches
     h, w = _check_input(x, out_hw)
     if x.device.type == "cpu":
         return fused_resize_normalize_plain(x, (h, w), scale, offset)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    return _launch(x, h, w, scale, offset, ROWS)
+
+
+def _launch(x: torch.Tensor, h: int, w: int, scale: float, offset: float,
+            rows: int) -> torch.Tensor:
+    """One launch of the kernel on a CUDA tensor, with bands of up to
+    ``rows`` output rows (:func:`fused_resize_normalize` passes ``ROWS``;
+    chip_smoke.py's band-height sweep the others)."""
+    global launches
     if not x.is_contiguous():
         raise ValueError("the CUDA resize kernel needs a contiguous input")
     n, src_h, src_w, c = x.shape
     # built first: raises for a zero source dim, as the plain version does
     plan, (bw, h_lo, h_hi, ww_, w_lo, w_hi), slots = _device_plan(
-        src_h, h, src_w, w, c, x.element_size(), ROWS, x.device)
+        src_h, h, src_w, w, c, x.element_size(), rows, x.device)
     out = torch.empty((n, h, w, c), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
@@ -343,7 +352,7 @@ def fused_resize_normalize(x: torch.Tensor, out_hw: Tuple[int, int],
                  bw.shape[1], ww_.data_ptr(), w_lo.data_ptr(),
                  w_hi.data_ptr(), out.data_ptr(),
                  n, src_h, src_w, c, h, w,
-                 plan.rows, plan.tile_w, plan.ahead, plan.depth, plan.pitch,
+                 plan.rows, plan.tile_w, plan.depth, plan.pitch,
                  plan.smem, _grid(plan, n, slots), float(scale),
                  float(offset), stream)
     if err != 0:

@@ -6,8 +6,10 @@ Pallas kernel in interpret mode (as tests/test_ops.py runs it).
 The CUDA kernel itself runs only on the card; ``chip_smoke.py`` holds it
 against the plain version tested here."""
 
-import itertools
+import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -130,10 +132,8 @@ def test_plan_stages_every_nonzero_weight(geometry, c):
         staged = ((np.arange(src)[None, :] >= start[:, None])
                   & (np.arange(src)[None, :] < stop[:, None]))
         assert not dense[~staged].any()
-    # the ring holds the band being computed and the ahead bands in flight
-    assert 0 <= plan.ahead <= infeed.AHEAD
-    assert plan.depth >= (plan.ahead + 1) * int(np.ptp(plan.bands,
-                                                       axis=1).max())
+    # the ring holds the band being computed and the one in flight
+    assert plan.depth >= 2 * int(np.ptp(plan.bands, axis=1).max())
     # a ring slot holds the widest tile's row with up to 15 bytes before it
     assert plan.pitch % 16 == 0
     assert plan.pitch >= 15 + int(np.ptp(plan.tiles, axis=1).max()) * c
@@ -197,7 +197,7 @@ def _run_plan(x, plan, out_hw, scale, offset, grid):
     """The CUDA kernel's schedule in numpy, for ``grid`` persistent
     blocks: each walks its contiguous run of items (image, tile, band;
     bands fastest), loading into ring slots only the source rows an item
-    adds to the band before it, ``ahead`` items in front of the compute,
+    adds to the band before it, one item in front of the compute,
     which finds the item's rows where the loader put them. Every tap
     checks that its slot still holds its own row; row and column passes
     accumulate in fp32 over ascending sources."""
@@ -247,8 +247,7 @@ def _run_plan(x, plan, out_hw, scale, offset, grid):
                 band = item[3] // plan.rows
                 placed.append((item, slot(run, plan.bands[band, 0])))
 
-        for _ in range(plan.ahead):
-            load_next()
+        load_next()
         for _ in range(first, last):
             load_next()
             (img, tile, band, y0, rows, x0, cols), slot0 = placed.pop(0)
@@ -271,14 +270,17 @@ def _run_plan(x, plan, out_hw, scale, offset, grid):
 
 
 # (input shape, output hw, scale, offset, input dtype, plan options): the
-# chip smoke's small cases, and two downscales with a budget so small that
-# the plan tiles columns (the first also shortens its bands and loads no
-# item ahead)
+# chip smoke's small cases and its two tall images, whose steep vertical
+# downscales shorten the bands (to 2 rows within the budget, to 1 in up to
+# 227 KB), and two downscales with a budget so small that the plan tiles
+# columns (the first also shortens its bands)
 SCHEDULE_CASES = [
     ((3, 40, 56, 3), (24, 32), 1 / 127.5, -1.0, np.uint8, {}),
     ((3, 41, 57, 1), (24, 33), 1.0, 0.0, np.uint8, {}),
     ((1, 30, 30, 1), (61, 61), 1.0, 0.0, np.uint8, {}),
     ((2, 17, 17, 3), (17, 17), 1.0, 0.0, np.uint8, {}),
+    ((1, 6000, 16, 1), (8, 16), 1.0, 0.0, np.uint8, {}),
+    ((1, 10000, 64, 3), (8, 32), 1.0, 0.0, np.uint8, {}),
     ((2, 64, 48, 3), (33, 71), 1.0, 0.0, np.float32, {}),
     ((1, 200, 260, 3), (23, 29), 1.0, 0.0, np.uint8,
      {"smem_budget": 4096, "rows": 8}),
@@ -299,6 +301,9 @@ def test_plan_schedule_reproduces_plain(shape, out_hw, scale, offset,
                               **opts)
     if opts:  # the budget forces column tiles
         assert len(plan.tiles) > 1
+    elif shape[1] >= 6000:  # the tall images' bands
+        assert (plan.rows, plan.smem > infeed.SMEM_BUDGET) == (
+            (2, False) if shape[1] == 6000 else (1, True))
     ref = infeed.fused_resize_normalize_plain(torch.from_numpy(x), out_hw,
                                               scale, offset).numpy()
     tol = TOL_UNIT if scale != 1.0 else TOL_COUNTS
@@ -324,8 +329,44 @@ def test_build_hash_covers_included_csrc_files(tmp_path, monkeypatch):
     (tmp_path / "k.cuh").write_text('#include "common.cuh"\n')
     (tmp_path / "common.cuh").write_text("// v1\n")
     monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
-    assert [os.path.basename(p) for p in _build.sources("k")] == [
-        "k.cu", "k.cuh", "common.cuh"]
     before = _build.library_path("k")
+    assert before == _build.library_path("k")
     (tmp_path / "common.cuh").write_text("// v2\n")
-    assert _build.library_path("k") != before
+    after = _build.library_path("k")
+    assert after != before
+    (tmp_path / "k.cuh").write_text('#include "common.cuh"\n// edited\n')
+    assert _build.library_path("k") not in (before, after)
+
+
+
+def test_phase_variants_cut_the_kernel_once():
+    """Each variant of k1_phases.py applies every one of its cuts to the
+    kernel's source exactly once, and a cut that no longer matches stops
+    the script; without CUDA it exits non-zero and prints nothing on
+    stdout."""
+    code = (
+        "import contextlib, io, json\n"
+        "import k1_phases\n"
+        "from sparkdl_tpu_torch.ops import _build\n"
+        "src = open(_build.CSRC_DIR + '/resize_normalize.cu').read()\n"
+        "changed = {n: k1_phases.variant_source(src, c) != src\n"
+        "           for n, c in k1_phases.VARIANTS.items()}\n"
+        "try:\n"
+        "    k1_phases.variant_source('// edited\\n', ['row_pass'])\n"
+        "    stale = 'accepted'\n"
+        "except RuntimeError as e:\n"
+        "    stale = str(e)\n"
+        "out = io.StringIO()\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    rc = k1_phases.main()\n"
+        "print(json.dumps({'changed': changed, 'stale': stale, 'rc': rc,\n"
+        "                  'stdout': out.getvalue()}))\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["changed"].pop("full") is False
+    assert len(result["changed"]) == 7 and all(result["changed"].values())
+    assert "occurs 0 times" in result["stale"]
+    assert result["rc"] != 0 and result["stdout"] == ""
