@@ -6,32 +6,54 @@
 Phases, one JSON line each on stdout:
 
 1. ``env``       — the card (nvidia-smi name and power limit), torch, CUDA.
-2. ``build``     — builds the port's CUDA kernel from the checkout's
-                   source with nvcc.
-3. ``kernel``    — holds the kernel against its plain PyTorch version on
-                   the card at the main path's shape and a few others
-                   (a phone-photo downscale, unaligned rows, tall images
-                   whose plans take shorter bands), times each case
-                   beside its bound with its launch configuration (grid,
-                   threads, shared memory, blocks per SM), times kernel,
-                   plain version and the PyTorch library call that
-                   computes the same function at the main shape, and
-                   checks and times the kernel at each band height it is
-                   built for at the main and the phone-photo shapes.
+2. ``build``     — builds the port's two CUDA kernels from the checkout's
+                   sources with nvcc (one process each, started together),
+                   with ptxas's registers and spills, and the native host
+                   shim with g++; ``host`` says whether the shim built,
+                   and whether with libjpeg.
+3. ``kernel``    — K1 (RGB resize): holds the kernel against its plain
+                   PyTorch version on the card at the main path's shape
+                   and a few others (a phone-photo downscale, unaligned
+                   rows, tall images whose plans take shorter bands),
+                   times each case beside its bound with its launch
+                   configuration (grid, threads, shared memory, blocks
+                   per SM), times kernel, plain version and the PyTorch
+                   library call that computes the same function at the
+                   main shape, and checks and times the kernel at each
+                   band height it is built for at the main and the
+                   phone-photo shapes.
+4. ``kernel_yuv420`` — K2 (4:2:0 resize + colour): the same for K2 at the
+                   headline shape (uint8 and fp32 output), the RGB main
+                   path's source size, bench.py's full-resolution 4:2:0
+                   shape, phone photos and a small odd geometry: fp32
+                   against the plain version, uint8 against rint of K2's
+                   own fp32 output (exactly) and of the plain version's
+                   (within one count); beside the plain version's time,
+                   the composition of per-plane ``F.interpolate`` and the
+                   colour math (no single PyTorch call computes it).
                    Times are CUDA events around warm calls: ``ms`` is
                    the eager call through the Python wrapper, as kernel,
                    plain version and library are all timed;
                    ``device_ms`` is the kernel's calls replayed from a
                    CUDA graph, the device's time without the host's.
-4. ``featurize`` — drives the main path through its public entry points:
+5. ``featurize`` — drives K1's path through its public entry points:
                    ``DeepImageFeaturizer(modelName="InceptionV3",
                    deviceResizeFrom=(512, 512))`` over a ``DataFrame`` of
                    512 seeded 512×512 RGB images in 8 partitions: a cold
-                   run, then the main run, with the kernel's launch count
-                   set to 0 just before it and read just after;
+                   run, then the counted run, with the kernels' launch
+                   counts set to 0 just before it and read just after;
                    cross-checks one batch against the plain resize
                    feeding the same model.
-5. ``kernels``   — the kernel's launches on the main path and pass/fail.
+6. ``headline``  — drives the 4:2:0 path as the JAX package's benchmark
+                   headlines it: 512 seeded 150×150 textured images
+                   packed as 4:2:0 rows (``rgbToYuv420``) in 8
+                   partitions, through ``TensorTransformer`` over
+                   ``deviceResizeModel(InceptionV3, (150, 150),
+                   packedFormat="yuv420")``, batch 64: a cold run, then
+                   the counted run (K2 must launch 8 times, K1 none);
+                   cross-checks one batch against the plain 4:2:0 op
+                   feeding the same model.
+7. ``kernels``   — each kernel's launches on its path and pass/fail.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -45,12 +67,16 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
-# the port's one CUDA kernel: its source in the repo, and the TPU kernel
-# it replaces
+# the port's CUDA kernels: each one's source in the repo, and the TPU
+# kernel (or XLA op) it replaces
 KERNEL = "resize_normalize"
 KERNEL_SOURCE = "sparkdl_tpu_torch/ops/csrc/resize_normalize.cu"
 KERNEL_REPLACES = "sparkdl_tpu/ops/infeed.py:96"
+KERNEL_YUV420 = "yuv420_resize_normalize"
+KERNEL_YUV420_SOURCE = "sparkdl_tpu_torch/ops/csrc/yuv420_resize_normalize.cu"
+KERNEL_YUV420_REPLACES = "sparkdl_tpu/ops/infeed.py:152"
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s and
 # fp32 (non-tensor-core) FLOP/s
@@ -58,10 +84,13 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 
 MAIN_SHAPE = (64, 512, 512, 3)
+FEATURES = 2048          # InceptionV3's feature width
 MAIN_OUT = (299, 299)
 N_IMAGES = 512
 PARTITIONS = 8
 BATCH = 64
+# the headline path's source size (bench.py's packed_src)
+HEADLINE_SRC = (150, 150)
 # max |kernel - plain|: fp32, only the summation order differs
 BOUND_COUNTS = 1e-3      # outputs on the 0..255 scale
 BOUND_UNIT = 1e-5        # outputs on the [-1, 1] scale
@@ -69,6 +98,9 @@ BOUND_UNIT = 1e-5        # outputs on the [-1, 1] scale
 # the two resizes may round a pixel whose value sits at .5 to different
 # uint8 counts, and the model then runs in bf16
 BOUND_FEATURES_REL = 2e-2
+# K2's colour math after the resize: 2 subtractions, 4 multiplies and 4
+# adds a pixel, then a clip (2) and the affine (2) a channel
+YUV420_FLOPS_PER_PIXEL = 10 + 3 * 4
 
 
 def emit(phase, **fields):
@@ -254,6 +286,205 @@ def check_resize_kernel(torch, infeed):
     return results, main_err, timing
 
 
+def yuv420_bound_ms(x, src_hw, out, infeed):
+    """Least time for K2's function on this card: the larger of its bytes
+    (packed input read once, output written once) over HBM bandwidth and
+    its fp32 operations (each plane's banded multiply-adds on this
+    geometry's nonzero weights, and the colour math) over the fp32
+    peak."""
+    n = x.shape[0]
+    H, W = src_hw
+    h, w = out.shape[1:3]
+    macs = 0
+    for planes, (sh, sw) in ((1, (H, W)), (2, (H // 2, W // 2))):
+        taps = []
+        for src, dst in ((sh, h), (sw, w)):
+            lo, hi = infeed.weight_bands(
+                infeed.bilinear_weight_matrix(src, dst))
+            taps.append(int((hi - lo).sum()))
+        macs += planes * n * (sw * taps[0] + h * taps[1])
+    flops = 2 * macs + YUV420_FLOPS_PER_PIXEL * n * h * w
+    nbytes = x.numel() * x.element_size() + out.numel() * out.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops
+
+
+def yuv420_composition(torch, F, infeed, x, src_hw, out_hw, out_dtype):
+    """K2's function composed of PyTorch calls: each plane converted to
+    fp32 NCHW and resized by ``F.interpolate(bilinear, antialias=True)``
+    (Cb and Cr as one 2-channel call), then the colour math, clip,
+    and for uint8 the round. A yardstick of what PyTorch's own kernels
+    take; the port never calls it."""
+    y, cb, cr = infeed.yuv420_unpack(x, src_hw)
+    yf = F.interpolate(y.permute(0, 3, 1, 2).float(), size=out_hw,
+                       mode="bilinear", antialias=True, align_corners=False)
+    c = F.interpolate(torch.cat([cb, cr], dim=3).permute(0, 3, 1, 2).float(),
+                      size=out_hw, mode="bilinear", antialias=True,
+                      align_corners=False) - 128.0
+    yf, cbf, crf = yf[:, 0], c[:, 0], c[:, 1]
+    rgb = torch.stack([yf + infeed._CR_R * crf,
+                       yf + infeed._CB_G * cbf + infeed._CR_G * crf,
+                       yf + infeed._CB_B * cbf], dim=-1).clamp_(0.0, 255.0)
+    return infeed.round_to_uint8(rgb) if out_dtype == torch.uint8 else rgb
+
+
+def check_yuv420_kernel(torch, infeed):
+    """K2 at each case: fp32 against the plain version, uint8 against rint
+    of its own fp32 output and of the plain version's; then the timed
+    output type's eager and graph times, bound, plain version and PyTorch
+    composition."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(1)
+    u8, f32 = torch.uint8, torch.float32
+    cases = [
+        ("headline_u8", 64, HEADLINE_SRC, MAIN_OUT, u8),
+        ("headline_f32", 64, HEADLINE_SRC, MAIN_OUT, f32),
+        ("rgb_main_512", 64, (512, 512), MAIN_OUT, u8),
+        ("full_res_298", 64, (298, 298), MAIN_OUT, u8),
+        ("large_downscale", 2, (3024, 4032), MAIN_OUT, u8),
+        ("small_odd", 3, (46, 62), (23, 37), u8),
+    ]
+    results = []
+    for name, n, src_hw, out_hw, timed in cases:
+        row = src_hw[0] * src_hw[1] * 3 // 2
+        x = torch.randint(0, 256, (n, row), generator=gen,
+                          dtype=torch.uint8).cuda()
+        got = infeed.fused_yuv420_resize_normalize(x, src_hw, out_hw)
+        got_u8 = infeed.fused_yuv420_resize_normalize(x, src_hw, out_hw,
+                                                      out_dtype=u8)
+        ref = infeed.fused_yuv420_resize_normalize_plain(x, src_hw, out_hw)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        own = int((got_u8 != infeed.round_to_uint8(got)).sum().item())
+        off = (got_u8.int() - infeed.round_to_uint8(ref).int()).abs()
+        off_max, off_count = int(off.max().item()), int((off > 0).sum())
+        ok = (bool(torch.isfinite(got).all().item()) and err <= BOUND_COUNTS
+              and own == 0 and off_max <= 1)
+        out = got_u8 if timed == u8 else got
+
+        def call():
+            return infeed.fused_yuv420_resize_normalize(x, src_hw, out_hw,
+                                                        out_dtype=timed)
+
+        def plain():
+            return infeed.fused_yuv420_resize_normalize_plain(
+                x, src_hw, out_hw, out_dtype=timed)
+
+        def composition():
+            return yuv420_composition(torch, F, infeed, x, src_hw, out_hw,
+                                      timed)
+
+        bound_ms, bound_by, nbytes, flops = yuv420_bound_ms(x, src_hw, out,
+                                                            infeed)
+        comp_diff = (composition().float() - plain().float()).abs().max()
+        results.append({
+            "case": name, "n": n, "src_hw": list(src_hw),
+            "out_hw": list(out_hw), "timed_dtype": str(timed),
+            "max_abs_err": err, "bound": BOUND_COUNTS,
+            "u8_differs_from_rint_own": own,
+            "u8_max_diff_vs_rint_plain": off_max,
+            "u8_pixels_differing_vs_rint_plain": off_count, "ok": ok,
+            **speed(bound_ms, nbytes, time_ms(call),
+                    time_ms(call, graph=True)),
+            "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+            "plain_ms": time_ms(plain),
+            "torch_composition_ms": time_ms(composition),
+            "composition_max_abs_diff_vs_plain": comp_diff.item(),
+            "launch": infeed.yuv420_launch_config(x, src_hw, out_hw,
+                                                  timed)})
+        if not ok:
+            raise AssertionError(
+                f"4:2:0 kernel case {name}: max|diff| {err} (bound "
+                f"{BOUND_COUNTS}), uint8 != rint(own fp32) at {own} "
+                f"values, max {off_max} counts from rint(plain)")
+    return results
+
+
+def headline(torch, np, smi_line):
+    """The 4:2:0 path through its public entry points; returns K2's
+    launches on the counted run."""
+    from sparkdl_tpu_torch import DataFrame, TensorTransformer
+    from sparkdl_tpu_torch.image.imageIO import rgbToYuv420
+    from sparkdl_tpu_torch.models import zoo
+    from sparkdl_tpu_torch.ops import infeed
+    from sparkdl_tpu_torch.transformers.utils import deviceResizeModel
+    from sparkdl_tpu_torch.utils.synth import textured_image
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    packed = np.stack([rgbToYuv420(textured_image(rng, *HEADLINE_SRC))
+                       for _ in range(N_IMAGES)])
+    df = DataFrame.from_columns({"image": packed},
+                                num_partitions=PARTITIONS)
+    setup_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    model = zoo.getModelFunction("InceptionV3", featurize=True)
+    mf = deviceResizeModel(model, HEADLINE_SRC, packedFormat="yuv420")
+    model_build_s = time.perf_counter() - t0
+    runs = []
+    for run in ("cold", "main"):
+        # a transformer per run, so its metrics are that run's
+        transformer = TensorTransformer(
+            modelFunction=mf, inputMapping={"image": "image"},
+            outputMapping={"features": "features"}, batchSize=BATCH)
+        if run == "main":
+            # the counted run: the counts are 0 just before, read just after
+            infeed.launches = infeed.yuv420_launches = 0
+        t0 = time.perf_counter()
+        out = transformer.transform(df).collect()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, out))
+    launches = {KERNEL_YUV420: infeed.yuv420_launches,
+                KERNEL: infeed.launches}
+    if launches != {KERNEL_YUV420: N_IMAGES // BATCH, KERNEL: 0}:
+        raise AssertionError(f"headline launches {launches}: K2 must launch "
+                             f"{N_IMAGES // BATCH} times and K1 none")
+
+    feats = [np.asarray(o["features"]) for _, o in runs]
+    for f in feats:
+        if f.shape != (N_IMAGES, FEATURES) or not np.isfinite(f).all():
+            raise AssertionError(f"features {f.shape}, finite="
+                                 f"{np.isfinite(f).all()}")
+    if not np.array_equal(runs[1][1]["image"], packed):
+        raise AssertionError("rows came back changed or out of order")
+
+    # one batch through the plain 4:2:0 op (with its round) and the same
+    # model function
+    x = torch.from_numpy(packed[:BATCH]).cuda()
+    with torch.inference_mode():
+        y_plain = infeed.fused_yuv420_resize_normalize_plain(
+            x, HEADLINE_SRC, MAIN_OUT, out_dtype=torch.uint8).contiguous()
+        y_kernel = infeed.fused_yuv420_resize_normalize(
+            x, HEADLINE_SRC, MAIN_OUT, out_dtype=torch.uint8)
+    differing = int((y_plain != y_kernel).sum().item())
+    ref = model.apply({"image": y_plain})["features"].float().cpu().numpy()
+    got = feats[1][:BATCH]
+    rel = float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+    if not rel <= BOUND_FEATURES_REL:
+        raise AssertionError(f"headline vs plain 4:2:0 path: relative "
+                             f"max|diff| {rel} > {BOUND_FEATURES_REL}")
+    warm_s = runs[1][0]
+    emit("headline", model="InceptionV3", images=N_IMAGES,
+         partitions=PARTITIONS, batch=BATCH, source_hw=list(HEADLINE_SRC),
+         packed_row_bytes=int(packed.shape[1]),
+         features_shape=list(feats[1].shape), finite=True,
+         launches=launches, setup_s=setup_s, model_build_s=model_build_s,
+         cold_s=runs[0][0], warm_s=warm_s,
+         warm_images_per_s=N_IMAGES / warm_s,
+         runs_max_abs_diff=float(np.abs(feats[0] - feats[1]).max()),
+         features_max_abs=float(np.abs(feats[1]).max()),
+         crosscheck_rel_max_diff=rel, crosscheck_bound=BOUND_FEATURES_REL,
+         crosscheck_pixels_differing=differing,
+         runner={k: getattr(transformer.metrics, k) for k in (
+             "rows", "batches", "seconds", "bytes_staged", "bytes_copied",
+             "transfer_wait_seconds")},
+         card=smi_line)
+    return launches[KERNEL_YUV420]
+
+
 def featurize(torch, np, smi_line):
     from sparkdl_tpu_torch import DataFrame, DeepImageFeaturizer
     from sparkdl_tpu_torch.image.imageIO import imageArrayToStruct
@@ -275,8 +506,8 @@ def featurize(torch, np, smi_line):
     runs = []
     for run in ("cold", "main"):
         if run == "main":
-            # the counted run: the count is 0 just before, read just after
-            infeed.launches = 0
+            # the counted run: the counts are 0 just before, read just after
+            infeed.launches = infeed.yuv420_launches = 0
         t0 = time.perf_counter()
         planned = featurizer.transform(df)   # builds the model function
         t1 = time.perf_counter()
@@ -284,10 +515,12 @@ def featurize(torch, np, smi_line):
         torch.cuda.synchronize()
         runs.append((time.perf_counter() - t0, out, t1 - t0))
     launches = infeed.launches
+    if infeed.yuv420_launches:
+        raise AssertionError("the RGB path launched the 4:2:0 kernel")
 
     feats = [np.asarray(o["features"]) for _, o, _ in runs]
     for f in feats:
-        if f.shape != (N_IMAGES, 2048) or not np.isfinite(f).all():
+        if f.shape != (N_IMAGES, FEATURES) or not np.isfinite(f).all():
             raise AssertionError(f"features {f.shape}, finite="
                                  f"{np.isfinite(f).all()}")
     for _, o, _ in runs:
@@ -355,31 +588,59 @@ def main():
          capability=list(torch.cuda.get_device_capability(0)),
          count=torch.cuda.device_count(), python=sys.version.split()[0])
 
+    # the two nvcc builds and the shim's g++ build, all started together
+    from sparkdl_tpu_torch import native
+
+    def build(name):
+        t = time.perf_counter()
+        log = _build.build(name, ptxas_report=True)
+        return time.perf_counter() - t, log
+
     t0 = time.perf_counter()
-    log = _build.build(KERNEL, ptxas_report=True)
-    # per kernel: its (mangled) name, then its spills and registers
-    emit("build", name=KERNEL, seconds=time.perf_counter() - t0,
-         ptxas=[ln.strip() for ln in log.splitlines()
-                if "entry function" in ln or "registers" in ln
-                or "spill" in ln])
+    with ThreadPoolExecutor(3) as pool:
+        shim = pool.submit(native.get_lib)
+        builds = {name: pool.submit(build, name)
+                  for name in (KERNEL, KERNEL_YUV420)}
+        builds = {name: f.result() for name, f in builds.items()}
+        shim_built = shim.result() is not None
+    for name, (seconds, log) in builds.items():
+        # per kernel instance: its (mangled) name, then its spills and
+        # registers
+        emit("build", name=name, seconds=seconds,
+             ptxas=[ln.strip() for ln in log.splitlines()
+                    if "entry function" in ln or "registers" in ln
+                    or "spill" in ln])
+    emit("host", shim_built=shim_built, shim_libjpeg=native.has_jpeg(),
+         build_wall_s=time.perf_counter() - t0)
 
     cases, main_err, timing = check_resize_kernel(torch, infeed)
-    emit("kernel", name="resize_normalize", cases=cases, card=smi,
-         **timing)
+    emit("kernel", name=KERNEL, cases=cases, card=smi, **timing)
+    yuv_cases = check_yuv420_kernel(torch, infeed)
+    emit("kernel_yuv420", name=KERNEL_YUV420, cases=yuv_cases, card=smi)
 
     launches = featurize(torch, np, smi)
+    yuv_launches = headline(torch, np, smi)
 
-    emit("kernels", name=KERNEL, launches=launches, passed=launches > 0)
+    emit("kernels", launches={KERNEL: launches, KERNEL_YUV420: yuv_launches},
+         passed=launches > 0 and yuv_launches > 0)
     if launches == 0:
         raise AssertionError(f"kernel {KERNEL} was not launched on the "
                              "main path")
+    main = yuv_cases[0]
     kernels = [{
         "name": KERNEL, "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
         "max_abs_err": main_err, "ms": timing["ms"],
         "device_ms": timing["device_ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"]}]
+        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"]}, {
+        "name": KERNEL_YUV420, "route": "cuda",
+        "source": KERNEL_YUV420_SOURCE, "replaces": KERNEL_YUV420_REPLACES,
+        "launches": yuv_launches, "max_abs_err": main["max_abs_err"],
+        "ms": main["ms"], "device_ms": main["device_ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "torch_composition_ms": main["torch_composition_ms"]}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
 """sparkdl_tpu_torch — the PyTorch/CUDA port of sparkdl_tpu.
 
 The same pipeline surface as ``sparkdl_tpu`` (``readImages`` →
-``DeepImageFeaturizer`` → a features column), run by PyTorch on an
-NVIDIA GPU, with the one hand-written TPU kernel of the JAX package
-rewritten as a CUDA kernel (``ops/csrc/resize_normalize.cu``).
+``DeepImageFeaturizer`` → a features column, and ``readImagesPacked`` →
+``TensorTransformer`` over a device-resize model), run by PyTorch on an
+NVIDIA GPU, with the JAX package's hand-written TPU kernel and its
+4:2:0 resize-and-colour op rewritten as CUDA kernels
+(``ops/csrc/resize_normalize.cu``, ``ops/csrc/yuv420_resize_normalize.cu``).
 
 The port imports torch, numpy and the standard library only: nothing of
 JAX, flax, pyarrow or ``sparkdl_tpu``. Every entry point that touches a
@@ -20,10 +22,14 @@ __version__ = "0.1.0"
 _EXPORTS = {
     "imageSchema": ("sparkdl_tpu_torch.image.imageIO", "imageSchema"),
     "readImages": ("sparkdl_tpu_torch.image.imageIO", "readImages"),
+    "readImagesPacked": ("sparkdl_tpu_torch.image.imageIO",
+                         "readImagesPacked"),
     "DeepImageFeaturizer": ("sparkdl_tpu_torch.transformers.named_image",
                             "DeepImageFeaturizer"),
     "ImageTransformer": ("sparkdl_tpu_torch.transformers.image_transform",
                          "ImageTransformer"),
+    "TensorTransformer": ("sparkdl_tpu_torch.transformers.tensor_transform",
+                          "TensorTransformer"),
     "DataFrame": ("sparkdl_tpu_torch.data.frame", "DataFrame"),
 }
 

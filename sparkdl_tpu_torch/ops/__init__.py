@@ -6,4 +6,8 @@ from sparkdl_tpu_torch.ops.infeed import (  # noqa: F401
     bilinear_weight_matrix,
     fused_resize_normalize,
     fused_resize_normalize_plain,
+    fused_yuv420_resize_normalize,
+    fused_yuv420_resize_normalize_plain,
+    round_to_uint8,
+    yuv420_unpack,
 )

@@ -1,8 +1,9 @@
 """Fused device-side image infeed: dequant + anti-aliased bilinear
-resize + affine normalize.
+resize + affine normalize, from RGB or from packed planar 4:2:0 YCbCr.
 
-Counterpart of ``sparkdl_tpu/ops/infeed.py`` (``bilinear_weight_matrix``
-and the RGB ``fused_resize_normalize``)::
+Counterpart of ``sparkdl_tpu/ops/infeed.py`` (``bilinear_weight_matrix``,
+the RGB ``fused_resize_normalize`` and ``fused_yuv420_resize_normalize``;
+the 4:2:0 op is further down)::
 
     uint8 or float32 [N, H, W, C]  →  float32 [N, h, w, C]
     out = resize_bilinear(x) * scale + offset
@@ -359,4 +360,327 @@ def _launch(x: torch.Tensor, h: int, w: int, scale: float, offset: float,
         raise RuntimeError(
             f"{KERNEL} kernel launch failed with CUDA error {err}")
     launches += 1
+    return out
+
+
+def round_to_uint8(y: torch.Tensor) -> torch.Tensor:
+    """Round half to even (``torch.round``, as ``jnp.round``), clip to
+    [0, 255], cast to uint8 — what a host resize would have produced."""
+    return torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Packed planar YCbCr 4:2:0 → RGB, resized and normalized
+#
+# Counterpart of ``sparkdl_tpu/ops/infeed.py::fused_yuv420_resize_normalize``
+# (an XLA einsum chain in the JAX package, not a Pallas kernel)::
+#
+#     uint8 [N, H*W*3/2]  →  float32 or uint8 [N, h, w, 3]
+#
+# Two implementations of the same function: the plain PyTorch version
+# (per-plane einsums, then the colour math; the CPU path and the card's
+# reference), and the CUDA kernel ``csrc/yuv420_resize_normalize.cu`` (K2):
+# one launch per call, laid out by :func:`yuv420_plan`.
+# ---------------------------------------------------------------------------
+
+# BT.601 full-range inverse (the JPEG/JFIF matrix libjpeg's fixed-point
+# tables implement): R = Y + 1.402·Cr′, G = Y − 0.344136·Cb′ −
+# 0.714136·Cr′, B = Y + 1.772·Cb′, with Cb′/Cr′ zero-centered at 128.
+_CR_R = 1.402
+_CB_G = -0.114 * 1.772 / 0.587
+_CR_G = -0.299 * 1.402 / 0.587
+_CB_B = 1.772
+
+KERNEL_YUV420 = "yuv420_resize_normalize"
+# kernel launches made by fused_yuv420_resize_normalize (one per call on a
+# CUDA tensor); reset and read by callers that prove the kernel ran
+yuv420_launches = 0
+# output rows per band, the only band height the kernel is built for (R in
+# csrc/yuv420_resize_normalize.cu)
+YUV420_ROWS = 8
+# per block, so that several blocks share an SM without an opt-in
+YUV420_SMEM_BUDGET = 48 * 1024
+
+
+def _yuv420_src(x: torch.Tensor, src_hw: Tuple[int, int]) -> Tuple[int, int]:
+    """(H, W) after checking them against the packed rows of ``x``."""
+    H, W = int(src_hw[0]), int(src_hw[1])
+    if H <= 0 or W <= 0 or H % 2 or W % 2:
+        # 0 is even — guard positivity too, or (0, 0) slips through to
+        # empty planes
+        raise ValueError(
+            f"yuv420 needs positive even source dims, got {H}x{W}")
+    expect = H * W + 2 * (H // 2) * (W // 2)
+    if x.shape[1] != expect:
+        raise ValueError(
+            f"packed 4:2:0 row is {x.shape[1]} bytes, expected "
+            f"{expect} for {H}x{W}")
+    return H, W
+
+
+def yuv420_unpack(x: torch.Tensor, src_hw: Tuple[int, int]):
+    """Split a packed planar 4:2:0 batch [N, H*W*3/2] into
+    (y [N,H,W,1], cb [N,H/2,W/2,1], cr [N,H/2,W/2,1]) views."""
+    H, W = _yuv420_src(x, src_hw)
+    n = x.shape[0]
+    q = (H // 2) * (W // 2)
+    y = x[:, :H * W].reshape(n, H, W, 1)
+    cb = x[:, H * W:H * W + q].reshape(n, H // 2, W // 2, 1)
+    cr = x[:, H * W + q:].reshape(n, H // 2, W // 2, 1)
+    return y, cb, cr
+
+
+def _check_yuv420(x: torch.Tensor, out_hw, out_dtype) -> Tuple[int, int]:
+    if x.dim() != 2:
+        raise ValueError(
+            f"expected packed 4:2:0 rows [N, H*W*3/2], got {tuple(x.shape)}")
+    if x.dtype != torch.uint8:
+        raise TypeError(f"packed 4:2:0 rows must be uint8, got {x.dtype}")
+    if out_dtype not in (torch.float32, torch.uint8):
+        raise TypeError(f"out_dtype must be torch.float32 or torch.uint8, "
+                        f"got {out_dtype}")
+    h, w = int(out_hw[0]), int(out_hw[1])
+    if h <= 0 or w <= 0:
+        raise ValueError(f"output dims must be positive, got {(h, w)}")
+    return h, w
+
+
+def fused_yuv420_resize_normalize_plain(
+        x: torch.Tensor, src_hw: Tuple[int, int], out_hw: Tuple[int, int],
+        scale: float = 1.0, offset: float = 0.0,
+        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Packed 4:2:0 uint8 ``[N, H*W*3/2]`` → ``[N, h, w, 3]`` RGB in fp32
+    on ``x``'s device, by the JAX package's chain: each plane resized
+    straight to (h, w) by :func:`fused_resize_normalize_plain` (so the
+    chroma's 2× upsample and the resize are one matmul pair per axis),
+    BT.601 inverse, clip to [0, 255], then ``*scale + offset``. A uint8
+    ``out_dtype`` rounds that half to even and clips
+    (:func:`round_to_uint8`)."""
+    h, w = _check_yuv420(x, out_hw, out_dtype)
+    planes = [fused_resize_normalize_plain(p, (h, w))[..., 0]
+              for p in yuv420_unpack(x, src_hw)]
+    yf, cbf, crf = planes[0], planes[1] - 128.0, planes[2] - 128.0
+    rgb = torch.stack([yf + _CR_R * crf,
+                       yf + _CB_G * cbf + _CR_G * crf,
+                       yf + _CB_B * cbf], dim=-1)
+    out = torch.clamp(rgb, 0.0, 255.0) * scale + offset
+    return round_to_uint8(out) if out_dtype == torch.uint8 else out
+
+
+class PlanePlan(NamedTuple):
+    """K2's layout of one plane (luma, or both chroma planes)."""
+    bands: np.ndarray       # [bands, 2] source rows [rs, re) of each band
+    band_table: np.ndarray  # [bands, span, rows] fp32, as in ResizePlan
+    tiles: np.ndarray       # [tiles, 2] source columns [cs, ce) of each tile
+    w_weights: np.ndarray   # [w, taps] fp32: column x's weights from w_lo[x]
+    w_lo: np.ndarray
+    w_hi: np.ndarray
+    pitch: int              # floats of one row-pass result row in shared
+    #                         memory: the widest tile, rounded up to 4
+
+
+class Yuv420Plan(NamedTuple):
+    tile_w: int         # output columns per tile
+    luma: PlanePlan
+    chroma: PlanePlan
+    smem: int           # dynamic shared memory of one block, bytes
+
+
+def _yuv420_smem_bytes(luma_pitch: int, chroma_pitch: int) -> int:
+    # the row pass's results: YUV420_ROWS x pitch floats for Y, Cb, then Cr
+    return 4 * YUV420_ROWS * (luma_pitch + 2 * chroma_pitch)
+
+
+def yuv420_plan(src_h: int, src_w: int, h: int, w: int) -> Yuv420Plan:
+    """K2's launch plan: for each plane, its band weights per axis and the
+    source rows and columns of each band and tile. A block takes one band
+    of ``YUV420_ROWS`` output rows by one tile of output columns of one
+    image; the plan picks the fewest tiles whose row-pass results of all
+    three planes fit ``YUV420_SMEM_BUDGET`` (source rows stream from
+    device memory, so shared memory does not grow with the source: a
+    wider one gets narrower tiles). Raises ValueError for odd or zero
+    source dims, and for a horizontal downscale so steep (beyond about
+    384x) that one output column's taps do not fit."""
+    if src_h <= 0 or src_w <= 0 or src_h % 2 or src_w % 2:
+        raise ValueError(
+            f"yuv420 needs positive even source dims, got {src_h}x{src_w}")
+    weights = [(band_weights(bilinear_weight_matrix(sh, h)),
+                band_weights(bilinear_weight_matrix(sw, w)))
+               for sh, sw in ((src_h, src_w), (src_h // 2, src_w // 2))]
+
+    def pitch(w_lo, w_hi, tile_w):
+        span = int(np.ptp(_spans(w_lo, w_hi, tile_w), axis=1).max())
+        return -(-span // 4) * 4
+
+    last_tile_w = 0
+    for n_tiles in range(1, w + 1):
+        tile_w = -(-w // n_tiles)
+        if tile_w == last_tile_w:
+            continue
+        last_tile_w = tile_w
+        pitches = [pitch(cw[1], cw[2], tile_w) for _, cw in weights]
+        smem = _yuv420_smem_bytes(*pitches)
+        if smem > YUV420_SMEM_BUDGET:
+            continue
+        planes = []
+        for ((hw_, h_lo, h_hi), (ww_, w_lo, w_hi)), p in zip(weights,
+                                                            pitches):
+            bands = _spans(h_lo, h_hi, YUV420_ROWS)
+            planes.append(PlanePlan(
+                bands, _band_table(hw_, h_lo, h_hi, YUV420_ROWS, bands),
+                _spans(w_lo, w_hi, tile_w), ww_, w_lo, w_hi, p))
+        return Yuv420Plan(tile_w, planes[0], planes[1], smem)
+    raise ValueError(
+        f"yuv420 resize {src_h}x{src_w} -> {h}x{w} needs more than "
+        f"{YUV420_SMEM_BUDGET} bytes of shared memory per block")
+
+
+class _Plane(ctypes.Structure):
+    # as struct Plane in csrc/yuv420_resize_normalize.cu
+    _fields_ = [("table", ctypes.c_void_p), ("bands", ctypes.c_void_p),
+                ("tiles", ctypes.c_void_p), ("ww", ctypes.c_void_p),
+                ("w_lo", ctypes.c_void_p), ("w_hi", ctypes.c_void_p),
+                ("span", ctypes.c_int), ("pitch", ctypes.c_int),
+                ("stride", ctypes.c_int)]
+
+
+class _Yuv420Args(ctypes.Structure):
+    # as struct Args in csrc/yuv420_resize_normalize.cu
+    _fields_ = [("x", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("luma", _Plane), ("chroma", _Plane),
+                ("row_bytes", ctypes.c_longlong),
+                ("H", ctypes.c_int), ("W", ctypes.c_int),
+                ("h", ctypes.c_int), ("w", ctypes.c_int),
+                ("tile_w", ctypes.c_int), ("tiles", ctypes.c_int),
+                ("bands", ctypes.c_int),
+                ("scale", ctypes.c_float), ("offset", ctypes.c_float),
+                ("cr_r", ctypes.c_float), ("cb_g", ctypes.c_float),
+                ("cr_g", ctypes.c_float), ("cb_b", ctypes.c_float)]
+
+
+def _yuv420_library():
+    from sparkdl_tpu_torch.ops import _build
+    lib = _build.load(KERNEL_YUV420)
+    fn = lib.yuv420_resize_normalize_launch
+    if not fn.argtypes:
+        i, ip = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+        lib.yuv420_resize_normalize_args_size.argtypes = []
+        lib.yuv420_resize_normalize_args_size.restype = i
+        size = lib.yuv420_resize_normalize_args_size()
+        if size != ctypes.sizeof(_Yuv420Args):
+            raise RuntimeError(
+                f"{KERNEL_YUV420}: the kernel's Args struct is {size} "
+                f"bytes, its ctypes mirror {ctypes.sizeof(_Yuv420Args)}")
+        lib.yuv420_resize_normalize_smem.argtypes = [i, i]
+        lib.yuv420_resize_normalize_smem.restype = i
+        lib.yuv420_resize_normalize_occupancy.argtypes = [i, i, ip, ip, ip]
+        lib.yuv420_resize_normalize_occupancy.restype = i
+        fn.argtypes = [ctypes.POINTER(_Yuv420Args), i, i, i,
+                       ctypes.c_void_p]
+        fn.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=8)
+def _yuv420_device_plan(src_h: int, src_w: int, h: int, w: int,
+                        device: torch.device):
+    """The plan, its arrays on ``device`` and the kernel's view of them,
+    built once per geometry: per plane the band table, bands, tiles, the
+    column weights transposed ([taps, w], so a warp's loads of them
+    adjoin) and their bands, and the ``Plane`` struct that points at
+    them (the arrays are returned too: they must outlive it)."""
+    plan = yuv420_plan(src_h, src_w, h, w)
+    arrays, planes = [], []
+    for p, stride in ((plan.luma, src_w), (plan.chroma, src_w // 2)):
+        a = [torch.as_tensor(np.ascontiguousarray(v), device=device)
+             for v in (p.band_table, p.bands, p.tiles, p.w_weights.T,
+                       p.w_lo, p.w_hi)]
+        arrays.append(a)
+        planes.append(_Plane(*(v.data_ptr() for v in a),
+                             p.band_table.shape[1], p.pitch, stride))
+    return plan, arrays, planes
+
+
+def yuv420_launch_config(x: torch.Tensor, src_hw: Tuple[int, int],
+                         out_hw: Tuple[int, int],
+                         out_dtype: torch.dtype = torch.float32) -> dict:
+    """How K2 launches for ``x`` (a CUDA tensor): the plan's bands and
+    tiles, grid and threads, its shared memory as the kernel lays it out,
+    and what the card reports (blocks per SM, registers, local memory per
+    thread)."""
+    h, w = _check_yuv420(x, out_hw, out_dtype)
+    plan, _, _ = _yuv420_device_plan(*_yuv420_src(x, src_hw), h, w,
+                                     x.device)
+    lib = _yuv420_library()
+    u8 = int(out_dtype == torch.uint8)
+    smem = lib.yuv420_resize_normalize_smem(plan.luma.pitch,
+                                            plan.chroma.pitch)
+    if smem != plan.smem:
+        raise RuntimeError(f"plan reserves {plan.smem} bytes of shared "
+                           f"memory, the kernel lays out {smem}")
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(x.device):
+        err = lib.yuv420_resize_normalize_occupancy(
+            u8, plan.smem, *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"{KERNEL_YUV420}: occupancy query failed with "
+                           f"CUDA error {err}")
+    tiles, bands = len(plan.luma.tiles), len(plan.luma.bands)
+    return {"grid": [x.shape[0] * tiles * bands, 1, 1], "threads": THREADS,
+            "smem_bytes": plan.smem, "rows": YUV420_ROWS,
+            "tile_w": plan.tile_w, "tiles": tiles, "bands": bands,
+            "blocks_per_sm": vals[0].value, "registers": vals[1].value,
+            "local_bytes": vals[2].value}
+
+
+def fused_yuv420_resize_normalize(
+        x: torch.Tensor, src_hw: Tuple[int, int], out_hw: Tuple[int, int],
+        scale: float = 1.0, offset: float = 0.0,
+        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Packed planar YCbCr 4:2:0 uint8 ``[N, H*W*3/2]`` → ``[N, h, w, 3]``
+    RGB: per-plane anti-aliased bilinear resize straight from each
+    plane's own resolution, BT.601 inverse, clip to [0, 255], then
+    ``y * scale + offset``; with ``out_dtype=torch.uint8`` that is rounded
+    half to even and clipped, in the same pass.
+
+    A CPU tensor goes to :func:`fused_yuv420_resize_normalize_plain`. A
+    CUDA tensor goes to the CUDA kernel K2 on the current stream, one
+    launch per call; the wrapper raises on a non-contiguous input, a
+    geometry the plan cannot lay out, or a refused launch, and never
+    falls back to the plain version."""
+    h, w = _check_yuv420(x, out_hw, out_dtype)
+    if x.device.type == "cpu":
+        return fused_yuv420_resize_normalize_plain(x, src_hw, (h, w), scale,
+                                                   offset, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _launch_yuv420(x, *_yuv420_src(x, src_hw), h, w, scale, offset,
+                          out_dtype)
+
+
+def _launch_yuv420(x: torch.Tensor, H: int, W: int, h: int, w: int,
+                   scale: float, offset: float,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    global yuv420_launches
+    if not x.is_contiguous():
+        raise ValueError("the CUDA 4:2:0 kernel needs a contiguous input")
+    plan, _, (luma, chroma) = _yuv420_device_plan(H, W, h, w, x.device)
+    n = x.shape[0]
+    out = torch.empty((n, h, w, 3), dtype=out_dtype, device=x.device)
+    if n == 0:
+        return out
+    args = _Yuv420Args(
+        x.data_ptr(), out.data_ptr(), luma, chroma,
+        x.shape[1], H, W, h, w, plan.tile_w, len(plan.luma.tiles),
+        len(plan.luma.bands), scale, offset, _CR_R, _CB_G, _CR_G, _CB_B)
+    grid = n * len(plan.luma.tiles) * len(plan.luma.bands)
+    fn = _yuv420_library().yuv420_resize_normalize_launch
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(ctypes.byref(args), int(out_dtype == torch.uint8), grid,
+                 plan.smem, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{KERNEL_YUV420} kernel launch failed with CUDA error {err}")
+    yuv420_launches += 1
     return out

@@ -12,6 +12,9 @@ from sparkdl_tpu_torch.params.shared import (  # noqa: F401
     HasDevice,
     HasDeviceResizeFrom,
     HasInputCol,
+    HasInputMapping,
     HasModelFunction,
     HasOutputCol,
+    HasOutputMapping,
+    HasTFHParams,
 )

@@ -167,6 +167,41 @@ class TypeConverters:
         return str(torch.device(value))
 
     @staticmethod
+    def toStringDict(value) -> dict:
+        """{str: str} mapping, from a dict or a list of pairs."""
+        if isinstance(value, dict):
+            items = value.items()
+        elif isinstance(value, (list, tuple)):
+            items = list(value)
+        else:
+            raise TypeError(
+                f"expected dict or pair-list, got {type(value).__name__}")
+        out = {}
+        for k, v in items:
+            if not isinstance(k, str) or not isinstance(v, str):
+                raise TypeError("mapping keys and values must be str")
+            out[k] = v
+        return out
+
+    @staticmethod
+    def toHParams(value) -> dict:
+        """{str: number/array} dict of named constants."""
+        import numpy as np
+        if not isinstance(value, dict):
+            raise TypeError(
+                f"expected hyperparams dict, got {type(value).__name__}")
+        out = {}
+        for k, v in value.items():
+            if not isinstance(k, str):
+                raise TypeError("hyperparam names must be str")
+            if not isinstance(v, (int, float, bool, np.ndarray, list, tuple)):
+                raise TypeError(
+                    f"hyperparam {k!r} must be numeric or array-like, "
+                    f"got {type(v).__name__}")
+            out[k] = v
+        return out
+
+    @staticmethod
     def toModelFunction(value):
         from sparkdl_tpu_torch.graph.function import ModelFunction
         if isinstance(value, ModelFunction):

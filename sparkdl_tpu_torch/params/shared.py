@@ -88,3 +88,50 @@ class HasModelFunction(Params):
 
     def getModelFunction(self):
         return self.getOrDefault("modelFunction")
+
+
+class HasInputMapping(Params):
+    """DataFrame column → model input name."""
+
+    inputMapping = Param("HasInputMapping", "inputMapping",
+                         "dict: input column name -> model input name",
+                         TypeConverters.toStringDict)
+
+    def setInputMapping(self, value):
+        return self._set(inputMapping=value)
+
+    def getInputMapping(self) -> dict:
+        return self.getOrDefault("inputMapping")
+
+
+class HasOutputMapping(Params):
+    """Model output name → DataFrame column."""
+
+    outputMapping = Param("HasOutputMapping", "outputMapping",
+                          "dict: model output name -> output column name",
+                          TypeConverters.toStringDict)
+
+    def setOutputMapping(self, value):
+        return self._set(outputMapping=value)
+
+    def getOutputMapping(self) -> dict:
+        return self.getOrDefault("outputMapping")
+
+
+class HasTFHParams(Params):
+    """Named constants fed to the model inputs of the same name, each
+    broadcast over the rows."""
+
+    tfHParams = Param("HasTFHParams", "tfHParams",
+                      "dict: model input name -> constant value",
+                      TypeConverters.toHParams)
+
+    def __init__(self):
+        super().__init__()
+        self._setDefault(tfHParams=None)
+
+    def setTFHParams(self, value):
+        return self._set(tfHParams=value)
+
+    def getTFHParams(self) -> dict:
+        return self.getOrDefault("tfHParams") or {}

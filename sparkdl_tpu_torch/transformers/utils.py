@@ -1,6 +1,7 @@
 """Shared transformer helpers — counterpart of
 ``sparkdl_tpu/transformers/utils.py`` (image packing, model-output
-columns, runner selection, and the device-resize model wrapper)."""
+columns, the payload-to-model reshape guard, runner selection, and the
+device-resize model wrapper)."""
 
 from __future__ import annotations
 
@@ -11,34 +12,40 @@ import torch
 
 from sparkdl_tpu_torch.data.tensors import Batch, append_tensor_column
 from sparkdl_tpu_torch.image import imageIO
+from sparkdl_tpu_torch.ops.infeed import round_to_uint8
 
 IMAGE_INPUT_NAME = "image"
 
 
 def packImageBatch(column: np.ndarray, height: int, width: int,
                    nChannels: int = 3, resize: bool = True) -> np.ndarray:
-    """Image struct column → contiguous [N, H, W, C] uint8.
-
-    Every row must already be (height, width, nChannels): resizing rows
-    on the host is a later slice (ROADMAP "host resize in
-    packImageBatch"), so ``resize=True`` with an off-size row raises
-    ``NotImplementedError``; ``resize=False`` raises ``ValueError`` as
-    the JAX package does. Uniformly sized images go through
-    ``deviceResizeFrom`` instead, which resizes on the card."""
-    n = len(column)
-    out = np.empty((n, height, width, nChannels), np.uint8)
+    """Image struct column → contiguous [N, H, W, C] uint8, resizing rows
+    on the host as needed: all rows in one call of the native shim
+    (bilinear, OpenMP over rows) when it is built, else the off-size rows
+    one by one through PIL (``imageIO.resizeImageArray``). The two
+    resamplers differ by a few counts when downscaling, as in the JAX
+    package. ``resize=False`` raises ``ValueError`` on the first off-size
+    row."""
+    arrays = [imageIO.imageStructToArray(row) for row in column]
     want = (height, width, nChannels)
-    for i, row in enumerate(column):
-        got = (row["height"], row["width"], row["nChannels"])
-        if got != want:
-            if resize:
-                raise NotImplementedError(
-                    f"row {i}: image {got} != {want}, and host resize is "
-                    "not ported yet (ROADMAP: host resize in "
-                    "packImageBatch); pass deviceResizeFrom for uniformly "
-                    "sized images")
-            raise ValueError(f"row {i}: image {got} != {want}")
-        out[i] = imageIO.imageStructToArray(row)
+    off = [i for i, a in enumerate(arrays) if a.shape != want]
+    if not off:
+        out = np.empty((len(arrays),) + want, np.uint8)
+        for i, a in enumerate(arrays):
+            out[i] = a
+        return out
+    if not resize:
+        i = off[0]
+        raise ValueError(f"row {i}: image {arrays[i].shape} != {want}")
+
+    from sparkdl_tpu_torch import native
+    packed = native.resize_pack_batch(arrays, height, width, nChannels)
+    if packed is not None:
+        return packed
+    out = np.empty((len(arrays),) + want, np.uint8)
+    for i, a in enumerate(arrays):
+        out[i] = (imageIO.resizeImageArray(a, height, width, nChannels)
+                  if a.shape != want else a)
     return out
 
 
@@ -52,6 +59,24 @@ def appendModelOutput(batch: Batch, out_col: str,
     return append_tensor_column(batch, out_col, flat)
 
 
+def reshapeRows(arr, shape, dtype, describe_mismatch) -> np.ndarray:
+    """``[N, *row_shape]`` → ``[N, *shape]`` + dtype cast, with an error
+    that names both sides on an element-count mismatch (the bare numpy
+    reshape error names neither). Dynamic (None) dims skip the reshape;
+    zero-row chunks reshape legally, while N > 0 rows of a wrong count
+    raise ``ValueError(describe_mismatch(row_shape, got, expect))``."""
+    arr = np.asarray(arr)
+    static = shape and all(d is not None for d in shape)
+    if static and arr.shape[1:] != tuple(shape):
+        expect = int(np.prod(shape))
+        got = int(np.prod(arr.shape[1:], dtype=np.int64))
+        if got != expect and arr.shape[0] > 0:
+            raise ValueError(describe_mismatch(arr.shape[1:], got,
+                                               expect))
+        arr = arr.reshape((arr.shape[0],) + tuple(shape))
+    return arr.astype(dtype, copy=False)
+
+
 def make_runner(model_fn, batch_size: int, metrics=None):
     """The single-device ``BatchRunner`` (the mesh runner is a later
     slice)."""
@@ -59,48 +84,73 @@ def make_runner(model_fn, batch_size: int, metrics=None):
     return BatchRunner(model_fn, batch_size, metrics=metrics)
 
 
-def round_to_uint8(y: torch.Tensor) -> torch.Tensor:
-    """Round half to even (``torch.round``, as ``jnp.round``), clip to
-    [0, 255], cast to uint8 — what a host resize would have produced."""
-    return torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
-
-
 def deviceResizeModel(model_fn, src_hw: Tuple[int, int],
-                      packedFormat: str = "rgb"):
+                      use_pallas=None, packedFormat: str = "rgb"):
     """Wrap a single-image-input ModelFunction so the bilinear resize
     from ``src_hw`` to the model's input size runs on the device before
-    the model: the CUDA resize kernel (``ops.fused_resize_normalize``)
-    on the card, its plain version on the CPU. The resized float32
-    image is rounded back to the model's uint8 input, so the model's
-    preprocess sees what a host resize would have produced.
+    the model, as a CUDA kernel on the card and its plain version on the
+    CPU. The resized image is rounded back to the model's uint8 input
+    (half to even), so the model's preprocess sees what a host resize
+    would have produced.
 
-    Returns ``model_fn`` itself when ``src_hw`` is already its size.
-    Only ``packedFormat="rgb"`` is ported; the 4:2:0 format is a later
-    slice (ROADMAP queue B2)."""
-    if packedFormat != "rgb":
-        raise NotImplementedError(
-            f"packedFormat={packedFormat!r} is not ported yet (ROADMAP "
-            "queue B2: the yuv420 path); use 'rgb'")
+    ``packedFormat``: ``"rgb"`` takes ``[N, sh, sw, c]`` uint8 rows
+    (``ops.fused_resize_normalize``, kernel K1) and returns ``model_fn``
+    itself when ``src_hw`` is already its size; ``"yuv420"`` takes the
+    packed planar 4:2:0 rows ``[N, sh*sw*3/2]`` that
+    ``readImagesPacked(..., packedFormat="yuv420")`` ships, and
+    reconstructs RGB on the device (``ops.fused_yuv420_resize_normalize``,
+    kernel K2), which for a uint8 model input also does the round.
+
+    ``use_pallas`` is kept for the JAX package's signature: only its
+    ``"rgb"`` op has a Pallas kernel, so with ``"yuv420"`` a true value
+    raises, as it does there; with ``"rgb"`` it is ignored (the card
+    always runs K1)."""
     in_name, _ = single_io(model_fn)
     (h, w, c), in_dtype = model_fn.input_signature[in_name]
     sh, sw = int(src_hw[0]), int(src_hw[1])
-    if (sh, sw) == (h, w):
-        return model_fn
+    u8 = np.dtype(in_dtype) == np.uint8
+    torch_dtype = torch.from_numpy(np.empty(0, in_dtype)).dtype
 
     def cast(y):
-        if np.dtype(in_dtype) == np.uint8:
-            return round_to_uint8(y)
-        return y.to(torch.from_numpy(np.empty(0, in_dtype)).dtype)
+        return round_to_uint8(y) if u8 else y.to(torch_dtype)
 
-    def pre(inputs):
-        from sparkdl_tpu_torch.ops import fused_resize_normalize
-        return {in_name: cast(fused_resize_normalize(inputs[in_name],
-                                                     (h, w)))}
+    if packedFormat == "yuv420":
+        if use_pallas:
+            raise ValueError(
+                "use_pallas is not supported with packedFormat="
+                "'yuv420' (the 4:2:0 reconstruction op is XLA-only)")
+        if c != 3:
+            raise ValueError(
+                f"yuv420 input needs a 3-channel model, got {c}")
+        from sparkdl_tpu_torch.native import yuv420_packed_size
+        in_sig = ((yuv420_packed_size(sh, sw),), np.uint8)
+        label = "yuv420"
+
+        def pre(inputs):
+            from sparkdl_tpu_torch.ops import fused_yuv420_resize_normalize
+            # a uint8 model input takes the kernel's fused round
+            return fused_yuv420_resize_normalize(
+                inputs[in_name], (sh, sw), (h, w),
+                out_dtype=torch.uint8 if u8 else torch.float32
+            ).to(torch_dtype)
+    elif packedFormat == "rgb":
+        if (sh, sw) == (h, w):
+            return model_fn
+        in_sig = ((sh, sw, c), in_dtype)
+        label = "resize"
+
+        def pre(inputs):
+            from sparkdl_tpu_torch.ops import fused_resize_normalize
+            return cast(fused_resize_normalize(inputs[in_name], (h, w)))
+    else:
+        raise ValueError(f"packedFormat must be 'rgb' or 'yuv420', "
+                         f"got {packedFormat!r}")
 
     from sparkdl_tpu_torch.graph.function import with_preprocessor
     return with_preprocessor(
-        model_fn, pre, input_signature={in_name: ((sh, sw, c), in_dtype)},
-        name=f"resize({sh}x{sw})+{model_fn.name}")
+        model_fn, lambda inputs: {in_name: pre(inputs)},
+        input_signature={in_name: in_sig},
+        name=f"{label}({sh}x{sw})+{model_fn.name}")
 
 
 def single_io(model_fn) -> Tuple[str, str]:

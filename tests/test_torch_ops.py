@@ -6,6 +6,7 @@ Pallas kernel in interpret mode (as tests/test_ops.py runs it).
 The CUDA kernel itself runs only on the card; ``chip_smoke.py`` holds it
 against the plain version tested here."""
 
+import ctypes
 import json
 import os
 import subprocess
@@ -370,3 +371,249 @@ def test_phase_variants_cut_the_kernel_once():
     assert len(result["changed"]) == 7 and all(result["changed"].values())
     assert "occurs 0 times" in result["stale"]
     assert result["rc"] != 0 and result["stdout"] == ""
+
+
+# ---------------------------------------------------------------------------
+# The 4:2:0 op (K2's plain version) against the JAX package's, and K2's
+# launch plan and schedule
+# ---------------------------------------------------------------------------
+
+# a float32 resize value this close to k + 0.5 is a tie, which float32
+# summation order may round to either neighbour (as in test_torch_slice.py)
+TIE = 1e-4
+
+# (name, batch, source hw, output hw, scale, offset, tolerance): the
+# headline upsample, the RGB main path's source, bench.py's full-resolution
+# 4:2:0 shape, the identity, and a downscale to the [-1, 1] scale. The
+# tolerances are K1's: the colour transform's coefficients (at most 1.772
+# with the luma's 1, on values up to 255) stay within them.
+YUV_CASES = [
+    ("headline_150to299", 2, (150, 150), (299, 299), 1.0, 0.0, TOL_COUNTS),
+    ("rgb_main_512to299", 2, (512, 512), (299, 299), 1.0, 0.0, TOL_COUNTS),
+    ("full_res_298to299", 2, (298, 298), (299, 299), 1.0, 0.0, TOL_COUNTS),
+    ("identity_24", 3, (24, 24), (24, 24), 1.0, 0.0, TOL_COUNTS),
+    ("unit_40x56to24x32", 3, (40, 56), (24, 32), 1 / 127.5, -1.0, TOL_UNIT),
+]
+
+
+def _packed(n, src_hw, seed=0):
+    """Packed 4:2:0 rows of smooth images with noise, so the colour
+    transform leaves some pixels inside [0, 255] and clips others."""
+    from sparkdl_tpu_torch.image.imageIO import rgbToYuv420
+    rng = np.random.default_rng(seed)
+    h, w = src_hw
+    yy, xx = np.mgrid[0:h, 0:w]
+    rows = []
+    for i in range(n):
+        base = np.stack([128 + 120 * np.sin((xx + 7 * i) / 9.0 + c)
+                         * np.cos(yy / 13.0 - c) for c in range(3)], -1)
+        noisy = base + rng.normal(0, 20, base.shape)
+        rows.append(rgbToYuv420(np.clip(noisy, 0, 255).astype(np.uint8)))
+    return np.stack(rows)
+
+
+@pytest.mark.parametrize("name,n,src_hw,out_hw,scale,offset,tol", YUV_CASES,
+                         ids=[c[0] for c in YUV_CASES])
+def test_yuv420_plain_matches_jax(name, n, src_hw, out_hw, scale, offset,
+                                  tol):
+    x = _packed(n, src_hw)
+    before = infeed.yuv420_launches
+    got = infeed.fused_yuv420_resize_normalize(
+        torch.from_numpy(x), src_hw, out_hw, scale, offset)
+    got_u8 = infeed.fused_yuv420_resize_normalize(
+        torch.from_numpy(x), src_hw, out_hw, scale, offset,
+        out_dtype=torch.uint8)
+    assert infeed.yuv420_launches == before  # CPU tensors: plain version
+    ref = np.asarray(jax_infeed.fused_yuv420_resize_normalize(
+        x, src_hw, out_hw, scale=scale, offset=offset))
+    got, got_u8 = got.numpy(), got_u8.numpy()
+    assert got.shape == got_u8.shape == (n, *out_hw, 3)
+    assert (got.dtype, got_u8.dtype) == (np.float32, np.uint8)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=tol)
+    # the uint8 form is round(jax) (half to even, clipped), except where
+    # the value sits at a tie: there the two sums may round either way
+    ref_u8 = np.clip(np.round(ref), 0, 255).astype(np.uint8)
+    tie = np.abs(np.abs(got - np.floor(got)) - 0.5) < TIE
+    diff = got_u8.astype(int) - ref_u8.astype(int)
+    np.testing.assert_array_equal(diff[~tie], 0)
+    assert np.abs(diff).max() <= 1
+    if scale == 1.0:   # the 0..255 cases clip some pixels at both ends
+        assert (ref == 0).any() and (ref == 255).any()
+
+
+def test_yuv420_unpack_errors_match_jax():
+    ok = np.zeros((2, 24 * 24 * 3 // 2), np.uint8)
+    for hw, rows in (((23, 24), ok), ((24, 0), ok), ((0, 0), ok),
+                     ((24, 24), ok[:, :-1]), ((24, 26), ok)):
+        with pytest.raises(ValueError) as jax_err:
+            jax_infeed.yuv420_unpack(rows, hw)
+        with pytest.raises(ValueError) as err:
+            infeed.yuv420_unpack(torch.from_numpy(rows), hw)
+        assert str(err.value) == str(jax_err.value)
+    y, cb, cr = infeed.yuv420_unpack(torch.from_numpy(_packed(2, (24, 24))),
+                                     (24, 24))
+    assert (y.shape, cb.shape, cr.shape) == ((2, 24, 24, 1), (2, 12, 12, 1),
+                                             (2, 12, 12, 1))
+
+
+def test_yuv420_wrapper_rejects_other_dtypes_and_ranks():
+    x = torch.zeros(2, 24 * 24 * 3 // 2, dtype=torch.uint8)
+    with pytest.raises(TypeError):
+        infeed.fused_yuv420_resize_normalize(x.float(), (24, 24), (8, 8))
+    with pytest.raises(TypeError):
+        infeed.fused_yuv420_resize_normalize(x, (24, 24), (8, 8),
+                                             out_dtype=torch.float16)
+    with pytest.raises(ValueError):
+        infeed.fused_yuv420_resize_normalize(x[0], (24, 24), (8, 8))
+    with pytest.raises(ValueError):
+        infeed.fused_yuv420_resize_normalize(x, (24, 24), (0, 8))
+
+
+# geometries of K2's plan, with the column tiles each needs: the chip
+# smoke's cases (the headline upsample, the RGB main path's source,
+# bench.py's full-resolution shape, phone photos, a small odd output), and
+# a 1600-wide strip cut to 64 columns, a 25x horizontal downscale whose
+# full-width row pass does not fit the budget
+YUV_PLAN_CASES = [
+    ((150, 150), (299, 299), 1), ((512, 512), (299, 299), 1),
+    ((298, 298), (299, 299), 1), ((3024, 4032), (299, 299), 6),
+    ((46, 62), (23, 37), 1), ((24, 24), (24, 24), 1),
+    ((16, 1600), (2, 64), 3),
+]
+YUV_PLAN_IDS = [f"{s[0]}x{s[1]}to{d[0]}x{d[1]}" for s, d, _ in YUV_PLAN_CASES]
+
+
+@pytest.mark.parametrize("src,dst,tiles", YUV_PLAN_CASES, ids=YUV_PLAN_IDS)
+def test_yuv420_plan_stages_every_nonzero_weight_within_budget(src, dst,
+                                                               tiles):
+    plan = infeed.yuv420_plan(*src, *dst)
+    assert plan.smem <= infeed.YUV420_SMEM_BUDGET
+    assert plan.smem == infeed._yuv420_smem_bytes(plan.luma.pitch,
+                                                  plan.chroma.pitch)
+    assert len(plan.luma.tiles) == tiles
+    for p, (sh, sw) in ((plan.luma, src), (plan.chroma,
+                                          (src[0] // 2, src[1] // 2))):
+        assert p.pitch % 4 == 0
+        assert p.pitch >= int(np.ptp(p.tiles, axis=1).max())
+        assert len(p.bands) == -(-dst[0] // infeed.YUV420_ROWS)
+        assert len(p.tiles) == len(plan.luma.tiles) == -(-dst[1] //
+                                                        plan.tile_w)
+        for src_n, dense, spans, step in (
+                (sh, infeed.bilinear_weight_matrix(sh, dst[0]), p.bands,
+                 infeed.YUV420_ROWS),
+                (sw, infeed.bilinear_weight_matrix(sw, dst[1]), p.tiles,
+                 plan.tile_w)):
+            block = np.arange(dense.shape[0]) // step
+            start, stop = spans[block, 0], spans[block, 1]
+            assert (0 <= start).all() and (stop <= src_n).all()
+            staged = ((np.arange(src_n)[None, :] >= start[:, None])
+                      & (np.arange(src_n)[None, :] < stop[:, None]))
+            assert not dense[~staged].any()
+
+
+def _run_yuv420_plan(x, plan, src_hw, out_hw, scale, offset):
+    """K2's schedule in numpy: one block per (image, tile, band), bands
+    fastest; the row pass of each plane sums the band's source rows in
+    ascending order with the band table's weights into a [rows, pitch]
+    tile, reading only the tile's source columns; the column pass reads
+    each output column's taps from that tile (checking they lie inside
+    the tile's span) and applies the colour math."""
+    H, W = src_hw
+    h, w = out_hw
+    n = x.shape[0]
+    q = (H // 2) * (W // 2)
+    planes = (x[:, :H * W].reshape(n, H, W),
+              x[:, H * W:H * W + q].reshape(n, H // 2, W // 2),
+              x[:, H * W + q:].reshape(n, H // 2, W // 2))
+    n_bands, n_tiles = len(plan.luma.bands), len(plan.luma.tiles)
+    R = infeed.YUV420_ROWS
+    out = np.full((n, h, w, 3), np.nan, np.float32)
+    f32 = np.float32
+    for block in range(n * n_tiles * n_bands):
+        band, tile = block % n_bands, block // n_bands % n_tiles
+        img = block // n_bands // n_tiles
+        y0, x0 = band * R, tile * plan.tile_w
+        rows, cols = min(R, h - y0), min(plan.tile_w, w - x0)
+        sums = []
+        for p, src in zip((plan.luma, plan.chroma, plan.chroma), planes):
+            (vlo, vhi), (cs, ce) = p.bands[band], p.tiles[tile]
+            t = np.zeros((R, p.pitch), f32)
+            for v in range(vlo, vhi):
+                t[:, :ce - cs] += (p.band_table[band, v - vlo][:, None]
+                                   * src[img, v, cs:ce].astype(f32))
+            acc = np.zeros((rows, cols), f32)
+            for xl in range(cols):
+                xo = x0 + xl
+                lo, nt = p.w_lo[xo], p.w_hi[xo] - p.w_lo[xo]
+                assert cs <= lo and lo + nt <= ce
+                for j in range(nt):
+                    acc[:, xl] += p.w_weights[xo, j] * t[:rows, lo - cs + j]
+            sums.append(acc)
+        yf, cb, cr = sums[0], sums[1] - f32(128), sums[2] - f32(128)
+        rgb = np.stack([yf + f32(infeed._CR_R) * cr,
+                        yf + f32(infeed._CB_G) * cb + f32(infeed._CR_G) * cr,
+                        yf + f32(infeed._CB_B) * cb], axis=-1)
+        out[img, y0:y0 + rows, x0:x0 + cols] = (
+            np.clip(rgb, 0, 255) * f32(scale) + f32(offset))
+    return out
+
+
+@pytest.mark.parametrize("src,dst,scale,offset", [
+    ((40, 56), (24, 32), 1 / 127.5, -1.0),
+    ((46, 62), (23, 37), 1.0, 0.0),
+    ((24, 24), (24, 24), 1.0, 0.0),
+    ((30, 20), (61, 45), 1.0, 0.0),
+    ((16, 1600), (2, 64), 1.0, 0.0),
+], ids=["unit_downscale", "odd_output", "identity", "upsample",
+        "tiled_columns"])
+def test_yuv420_plan_schedule_reproduces_plain(src, dst, scale, offset):
+    x = _packed(2, src, seed=3)
+    plan = infeed.yuv420_plan(*src, *dst)
+    got = _run_yuv420_plan(x, plan, src, dst, scale, offset)
+    ref = infeed.fused_yuv420_resize_normalize_plain(
+        torch.from_numpy(x), src, dst, scale, offset).numpy()
+    tol = TOL_UNIT if scale != 1.0 else TOL_COUNTS
+    np.testing.assert_allclose(got, ref, rtol=0, atol=tol)
+
+
+def test_yuv420_plan_rejects_odd_sources_and_steep_downscales():
+    with pytest.raises(ValueError, match="even"):
+        infeed.yuv420_plan(151, 150, 299, 299)
+    # 8 rows of fp32 row-pass results for Y and both chroma planes fit 48 KB
+    # only while one output column's luma taps span at most ~768 source
+    # columns; at 1024 -> 1 and 4096 -> 8 they span over 1000
+    for src, dst in (((2, 1024), (1, 1)), ((2, 4096), (2, 8))):
+        with pytest.raises(ValueError, match="shared memory"):
+            infeed.yuv420_plan(*src, *dst)
+
+
+def test_yuv420_ctypes_args_match_the_kernels_structs(tmp_path):
+    """The ctypes mirror of K2's launch arguments lays its fields out as
+    the kernel's C structs do (compiled here with the host compiler; the
+    launcher also refuses a size mismatch on the card)."""
+    from sparkdl_tpu_torch.ops import _build
+    src = open(os.path.join(_build.CSRC_DIR,
+                            "yuv420_resize_normalize.cu")).read()
+    structs = src[src.index("struct Plane {"):src.index("namespace {")]
+    fields = [(name, "Args", name) for name, _ in infeed._Yuv420Args._fields_]
+    fields += [(f"luma.{name}", "Args", f"luma.{name}")
+               for name, _ in infeed._Plane._fields_]
+    prog = tmp_path / "layout.cpp"
+    prog.write_text(
+        "#include <cstddef>\n#include <cstdio>\n" + structs +
+        "int main() {\n  std::printf(\"%zu\\n\", sizeof(Args));\n" +
+        "".join(f'  std::printf("%zu\\n", offsetof({t}, {f}));\n'
+                for _, t, f in fields) + "}\n")
+    exe = tmp_path / "layout"
+    subprocess.run(["g++", "-std=c++17", str(prog), "-o", str(exe)],
+                   check=True, capture_output=True, timeout=60)
+    got = [int(v) for v in subprocess.run(
+        [str(exe)], check=True, capture_output=True, text=True,
+        timeout=60).stdout.split()]
+    luma = infeed._Yuv420Args.luma.offset
+    want = [ctypes.sizeof(infeed._Yuv420Args)]
+    want += [getattr(infeed._Yuv420Args, n).offset
+             for n, _ in infeed._Yuv420Args._fields_]
+    want += [luma + getattr(infeed._Plane, n).offset
+             for n, _ in infeed._Plane._fields_]
+    assert got == want

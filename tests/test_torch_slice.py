@@ -142,6 +142,9 @@ def test_import_closure_and_chip_smoke_without_cuda():
         "mods = [m.name for m in pkgutil.walk_packages(\n"
         "    sparkdl_tpu_torch.__path__, 'sparkdl_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
+        "exports = sorted(n for n in ('readImagesPacked', 'TensorTransformer',\n"
+        "                             'DataFrame')\n"
+        "                 if callable(getattr(sparkdl_tpu_torch, n)))\n"
         "smoke = runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
         "banned = ('jax', 'flax', 'sparkdl_tpu', 'pyarrow', 'PIL', "
         "'msgpack')\n"
@@ -151,13 +154,18 @@ def test_import_closure_and_chip_smoke_without_cuda():
         "with contextlib.redirect_stdout(out):\n"
         "    rc = smoke['main']()\n"
         "print(json.dumps({'mods': mods, 'loaded': loaded, 'rc': rc,\n"
+        "                  'exports': exports,\n"
         "                  'smoke_stdout': out.getvalue()}))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     result = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "sparkdl_tpu_torch.transformers.named_image" in result["mods"]
+    for mod in ("transformers.named_image", "transformers.tensor_transform",
+                "native", "image.imageIO"):
+        assert f"sparkdl_tpu_torch.{mod}" in result["mods"]
+    assert result["exports"] == ["DataFrame", "TensorTransformer",
+                                 "readImagesPacked"]
     assert result["loaded"] == []
     assert result["rc"] != 0 and result["smoke_stdout"] == ""
 
@@ -236,16 +244,43 @@ def test_image_struct_round_trip():
 
 
 def test_pack_refuses_off_size_rows():
+    """``resize=False`` refuses an off-size row by its index; rows at
+    the size pack as they are."""
     from sparkdl_tpu_torch.data.frame import to_column
     from sparkdl_tpu_torch.image.imageIO import imageArrayToStruct
     from sparkdl_tpu_torch.transformers.utils import packImageBatch
     col = to_column([imageArrayToStruct(np.zeros((4, 4, 3), np.uint8)),
                      imageArrayToStruct(np.zeros((5, 4, 3), np.uint8))])
     assert packImageBatch(col[:1], 4, 4).shape == (1, 4, 4, 3)
-    with pytest.raises(NotImplementedError, match="host resize"):
-        packImageBatch(col, 4, 4)
     with pytest.raises(ValueError, match="row 1"):
         packImageBatch(col, 4, 4, resize=False)
+
+
+@pytest.mark.parametrize("path", ["native", "pil"])
+def test_pack_resizes_off_size_rows_like_jax(path, monkeypatch):
+    """Mixed-size rows (and a gray and an RGBA row) resize on the host to
+    the JAX package's bytes: through the same C++ shim source on both
+    sides, or through PIL on both when neither has the shim."""
+    import sparkdl_tpu.image.imageIO as jax_io
+    from sparkdl_tpu.transformers.utils import packImageBatch as jax_pack
+    from sparkdl_tpu_torch import native
+    from sparkdl_tpu_torch.data.frame import to_column
+    from sparkdl_tpu_torch.image.imageIO import imageArrayToStruct
+    from sparkdl_tpu_torch.transformers.utils import packImageBatch
+    if path == "pil":
+        monkeypatch.setattr(native, "resize_pack_batch",
+                            lambda *a, **k: None)
+        monkeypatch.setenv("SPARKDL_TPU_NO_NATIVE", "1")
+    rng = np.random.default_rng(11)
+    arrays = [rng.integers(0, 256, shape, dtype=np.uint8) for shape in (
+        (12, 16, 3), (30, 41, 3), (7, 9, 3), (12, 16, 1), (25, 20, 4))]
+    structs = [imageArrayToStruct(a, origin=f"r{i}")
+               for i, a in enumerate(arrays)]
+    got = packImageBatch(to_column(structs), 12, 16)
+    ref = jax_pack(jax_io.structsToBatch(structs).column(0), 12, 16)
+    assert got.shape == (5, 12, 16, 3) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got[0], arrays[0])
 
 
 class _MeanPixel(torch.nn.Module):
@@ -273,3 +308,183 @@ def test_image_transformer_float_input_model_with_device_resize():
     ref = fused_resize_normalize(torch.from_numpy(imgs).float(), (6, 4))
     np.testing.assert_allclose(got, ref.mean(dim=(1, 2)).numpy(),
                                rtol=1e-6, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The 4:2:0 headline slice: readImagesPacked(yuv420) →
+# deviceResizeModel(yuv420) → TensorTransformer, with TestNet
+# ---------------------------------------------------------------------------
+
+YUV_SRC = (24, 24)
+
+
+@pytest.fixture(scope="module")
+def jpeg_dir(tmp_path_factory):
+    """JPEGs of a few sizes, all read at YUV_SRC, and one corrupt file."""
+    from PIL import Image
+    d = tmp_path_factory.mktemp("torch_slice_jpegs")
+    rng = np.random.default_rng(31)
+    for i in range(9):
+        h, w = (48, 48) if i % 3 else (37, 60)
+        arr = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        Image.fromarray(arr, "RGB").save(d / f"img_{i:02d}.jpg")
+    (d / "broken.jpg").write_bytes(b"\xff\xd8\xff not a jpeg")
+    return str(d)
+
+
+def test_yuv420_slice_matches_jax_end_to_end(jpeg_dir, cache_env):
+    """The same JPEGs through both packages' readers (byte-equal rows),
+    then TensorTransformer over deviceResizeModel(TestNet, 4:2:0), with
+    the same weights; the port's device op fuses the round to uint8."""
+    import sparkdl_tpu_torch
+    from sparkdl_tpu.data.tensors import arrow_to_tensor
+    from sparkdl_tpu.image import imageIO as jax_io
+    from sparkdl_tpu.models import zoo as jax_zoo
+    from sparkdl_tpu.ops import fused_yuv420_resize_normalize as jax_yuv
+    from sparkdl_tpu.transformers.tensor_transform import (
+        TensorTransformer as JaxTensorTransformer,
+    )
+    from sparkdl_tpu.transformers.utils import (
+        deviceResizeModel as jax_device_resize,
+    )
+    from sparkdl_tpu_torch.models import zoo
+    from sparkdl_tpu_torch.ops import fused_yuv420_resize_normalize
+    from sparkdl_tpu_torch.transformers.utils import deviceResizeModel
+
+    kw = dict(inputMapping={"image": "image"},
+              outputMapping={"features": "features"}, batchSize=4)
+    jax_mf = jax_device_resize(jax_zoo.getModelFunction("TestNet"),
+                               YUV_SRC, packedFormat="yuv420")
+    table = JaxTensorTransformer(modelFunction=jax_mf, **kw).transform(
+        jax_io.readImagesPacked(jpeg_dir, YUV_SRC, numPartitions=3,
+                                packedFormat="yuv420")).collect()
+    idx = table.schema.get_field_index("features")
+    ref = arrow_to_tensor(table.column(idx), table.schema.field(idx))
+    idx = table.schema.get_field_index("image")
+    packed = arrow_to_tensor(table.column(idx), table.schema.field(idx))
+
+    mf = deviceResizeModel(zoo.getModelFunction("TestNet", device="cpu"),
+                           YUV_SRC, packedFormat="yuv420")
+    assert mf.input_signature == {"image": ((864,), np.uint8)}
+    transformer = sparkdl_tpu_torch.TensorTransformer(modelFunction=mf,
+                                                      **kw)
+    df = sparkdl_tpu_torch.readImagesPacked(jpeg_dir, YUV_SRC,
+                                            numPartitions=3,
+                                            packedFormat="yuv420")
+    out = transformer.transform(df).collect()
+    assert list(out["filePath"]) == table.column("filePath").to_pylist()
+    assert len(out["filePath"]) == 9
+    np.testing.assert_array_equal(out["image"], packed)
+    assert out["features"].shape == ref.shape == (9, 16)
+    assert out["features"].dtype == np.float32
+    assert transformer.metrics.rows == 9
+    assert transformer.metrics.batches == 3  # partitions of 3 rows
+
+    # rows where the two 4:2:0 ops round a tie pixel to different counts
+    got_u8 = fused_yuv420_resize_normalize(
+        torch.from_numpy(np.array(packed)), YUV_SRC, (32, 32),
+        out_dtype=torch.uint8).numpy()
+    ref_u8 = np.clip(np.round(np.asarray(jax_yuv(packed, YUV_SRC,
+                                                 (32, 32)))), 0, 255)
+    tie_rows = (got_u8 != ref_u8).any(axis=(1, 2, 3))
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(out["features"][~tie_rows], ref[~tie_rows],
+                               rtol=0, atol=TOL_FEATURES * scale)
+    np.testing.assert_allclose(out["features"], ref, rtol=0,
+                               atol=TOL_FEATURES_TIE * scale)
+
+
+class _TwoInOne(torch.nn.Module):
+    def forward(self, inputs):
+        return {"y": inputs["a"].float().sum(1) * inputs["k"].float()[:, 0]}
+
+
+def _jax_and_torch_two_input_models():
+    import jax.numpy as jnp
+    from sparkdl_tpu.graph.function import ModelFunction as JaxModelFunction
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    sig = {"a": ((3,), np.float32), "k": ((1,), np.float32)}
+    jax_mf = JaxModelFunction(
+        lambda p, x: {"y": jnp.sum(x["a"], 1) * x["k"][:, 0]}, {},
+        input_signature=sig, output_names=["y"], name="two")
+    return jax_mf, ModelFunction(_TwoInOne(), sig, ["y"], device="cpu",
+                                 name="two")
+
+
+@pytest.mark.parametrize("params", [
+    {"inputMapping": {"a": "a", "k": "nope"}, "outputMapping": {"y": "y"}},
+    {"inputMapping": {"a": "a"}, "outputMapping": {"nope": "y"},
+     "tfHParams": {"k": [2.0]}},
+    {"inputMapping": {"a": "a"}, "outputMapping": {"y": "y"}},
+    {"inputMapping": {"a": "a"}, "outputMapping": {"y": "y"},
+     "tfHParams": {"k": [2.0, 3.0]}},
+    {"inputMapping": {"a": "a"}, "outputMapping": {"y": "y"},
+     "tfHParams": {"nope": 1.0}},
+    {"inputMapping": {"a": "a", "k": "k"}, "outputMapping": {"y": "y"},
+     "tfHParams": {"k": [2.0]}},
+], ids=["unknown_input", "unknown_output", "unmapped_input",
+        "hparam_shape", "unknown_hparam", "input_and_hparam"])
+def test_tensor_transformer_validates_like_jax(params):
+    from sparkdl_tpu.transformers.tensor_transform import (
+        TensorTransformer as JaxTensorTransformer,
+    )
+    from sparkdl_tpu_torch import TensorTransformer
+    jax_mf, mf = _jax_and_torch_two_input_models()
+    with pytest.raises(ValueError) as jax_err:
+        JaxTensorTransformer(modelFunction=jax_mf, **params)._validate()
+    with pytest.raises(ValueError) as err:
+        TensorTransformer(modelFunction=mf, **params)._validate()
+    assert str(err.value) == str(jax_err.value)
+
+
+def test_tensor_transformer_broadcasts_hparams_and_names_bad_columns():
+    from sparkdl_tpu_torch import DataFrame, TensorTransformer
+    from sparkdl_tpu_torch.transformers.utils import reshapeRows
+    _, mf = _jax_and_torch_two_input_models()
+    a = np.arange(15, dtype=np.float32).reshape(5, 3)
+    df = DataFrame.from_columns({"a": a}, num_partitions=2)
+    out = TensorTransformer(modelFunction=mf, inputMapping={"a": "a"},
+                            outputMapping={"y": "out"}, batchSize=2,
+                            tfHParams={"k": [2.0]}).transform(df).collect()
+    np.testing.assert_array_equal(out["out"], a.sum(1) * 2)
+    bad = DataFrame.from_columns({"a": np.zeros((4, 5), np.float32)})
+    with pytest.raises(ValueError, match="column 'a' rows carry 5 elements"):
+        TensorTransformer(modelFunction=mf, inputMapping={"a": "a"},
+                          outputMapping={"y": "out"},
+                          tfHParams={"k": [2.0]}).transform(bad).collect()
+    # dynamic dims skip the reshape; zero rows reshape legally
+    assert reshapeRows(np.zeros((0,)), (2, 3), np.float32,
+                       None).shape == (0, 2, 3)
+    assert reshapeRows(np.zeros((2, 6)), (None,), np.uint8,
+                       None).dtype == np.uint8
+
+
+def test_device_resize_model_refuses_what_jax_refuses():
+    from sparkdl_tpu.graph.function import ModelFunction as JaxModelFunction
+    from sparkdl_tpu.transformers.utils import (
+        deviceResizeModel as jax_device_resize,
+    )
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.models import zoo
+    from sparkdl_tpu_torch.transformers.utils import deviceResizeModel
+    mf = zoo.getModelFunction("TestNet", device="cpu")
+    gray = ModelFunction(_MeanPixel(), {"img": ((8, 8, 1), np.uint8)},
+                         ["m"], device="cpu")
+    jax_gray = JaxModelFunction(lambda p, x: {"m": x["img"]}, {},
+                                input_signature={"img": ((8, 8, 1),
+                                                         np.uint8)},
+                                output_names=["m"])
+    for model, jax_model, kw in (
+            (mf, None, {"packedFormat": "yuv420", "use_pallas": True}),
+            (gray, jax_gray, {"packedFormat": "yuv420"}),
+            (mf, None, {"packedFormat": "yuv420", "src_hw": (23, 24)}),
+            (mf, None, {"packedFormat": "bgr"})):
+        kw = {"src_hw": (24, 24), **kw}
+        if jax_model is None:
+            from sparkdl_tpu.models import zoo as jax_zoo
+            jax_model = jax_zoo.getModelFunction("TestNet")
+        with pytest.raises(ValueError) as jax_err:
+            jax_device_resize(jax_model, **kw)
+        with pytest.raises(ValueError) as err:
+            deviceResizeModel(model, **kw)
+        assert str(err.value) == str(jax_err.value)
