@@ -30,7 +30,10 @@ Phases, one JSON line each on stdout:
                    own fp32 output (exactly) and of the plain version's
                    (within one count); beside the plain version's time,
                    the composition of per-plane ``F.interpolate`` and the
-                   colour math (no single PyTorch call computes it).
+                   colour math (no single PyTorch call computes it); each
+                   case's launch: the persistent grid, items a block,
+                   ring depths, shared memory, blocks per SM, registers
+                   and ptxas's spill bytes.
                    Times are CUDA events around warm calls: ``ms`` is
                    the eager call through the Python wrapper, as kernel,
                    plain version and library are all timed;
@@ -330,11 +333,29 @@ def yuv420_composition(torch, F, infeed, x, src_hw, out_hw, out_dtype):
     return infeed.round_to_uint8(rgb) if out_dtype == torch.uint8 else rgb
 
 
-def check_yuv420_kernel(torch, infeed):
+def ptxas_spills(log):
+    """Spill-store bytes ptxas reports for each K2 instance in a build
+    log: {"uint8": n, "float32": n} (K2's kernel template takes ``true``
+    for uint8 output)."""
+    spills, instance = {}, None
+    for line in log.splitlines():
+        if "entry function" in line:
+            instance = ("uint8" if "yuv420_kernelILb1E" in line else
+                        "float32" if "yuv420_kernelILb0E" in line else None)
+        elif instance and "bytes spill stores" in line:
+            spills[instance] = int(line.split("bytes spill stores")[0]
+                                   .split(",")[-1])
+            instance = None
+    return spills
+
+
+def check_yuv420_kernel(torch, infeed, spills):
     """K2 at each case: fp32 against the plain version, uint8 against rint
     of its own fp32 output and of the plain version's; then the timed
     output type's eager and graph times, bound, plain version and PyTorch
-    composition."""
+    composition, and its launch (persistent grid, items a block, rings,
+    shared memory, blocks per SM, registers, and the spill bytes that
+    ptxas reported in ``spills``)."""
     import torch.nn.functional as F
     gen = torch.Generator().manual_seed(1)
     u8, f32 = torch.uint8, torch.float32
@@ -392,8 +413,10 @@ def check_yuv420_kernel(torch, infeed):
             "plain_ms": time_ms(plain),
             "torch_composition_ms": time_ms(composition),
             "composition_max_abs_diff_vs_plain": comp_diff.item(),
-            "launch": infeed.yuv420_launch_config(x, src_hw, out_hw,
-                                                  timed)})
+            "launch": {**infeed.yuv420_launch_config(x, src_hw, out_hw,
+                                                     timed),
+                       "spill_store_bytes": spills.get(
+                           str(timed).split(".")[-1])}})
         if not ok:
             raise AssertionError(
                 f"4:2:0 kernel case {name}: max|diff| {err} (bound "
@@ -615,7 +638,8 @@ def main():
 
     cases, main_err, timing = check_resize_kernel(torch, infeed)
     emit("kernel", name=KERNEL, cases=cases, card=smi, **timing)
-    yuv_cases = check_yuv420_kernel(torch, infeed)
+    yuv_cases = check_yuv420_kernel(torch, infeed,
+                                    ptxas_spills(builds[KERNEL_YUV420][1]))
     emit("kernel_yuv420", name=KERNEL_YUV420, cases=yuv_cases, card=smi)
 
     launches = featurize(torch, np, smi)

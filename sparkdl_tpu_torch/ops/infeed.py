@@ -398,8 +398,14 @@ yuv420_launches = 0
 # output rows per band, the only band height the kernel is built for (R in
 # csrc/yuv420_resize_normalize.cu)
 YUV420_ROWS = 8
-# per block, so that several blocks share an SM without an opt-in
-YUV420_SMEM_BUDGET = 48 * 1024
+# per block: three blocks share an SM's 228 KB (the kernel opts in past
+# 48 KB)
+YUV420_SMEM_BUDGET = 75 * 1024
+# threads per block (kThreads in the kernel): a tile of up to this many
+# output columns takes one column a thread in the column pass
+YUV420_THREADS = 320
+# source columns a thread takes in the row pass (kChunk in the kernel)
+YUV420_CHUNK = 8
 
 
 def _yuv420_src(x: torch.Tensor, src_hw: Tuple[int, int]) -> Tuple[int, int]:
@@ -469,90 +475,149 @@ def fused_yuv420_resize_normalize_plain(
 
 class PlanePlan(NamedTuple):
     """K2's layout of one plane (luma, or both chroma planes)."""
-    bands: np.ndarray       # [bands, 2] source rows [rs, re) of each band
-    band_table: np.ndarray  # [bands, span, rows] fp32, as in ResizePlan
-    tiles: np.ndarray       # [tiles, 2] source columns [cs, ce) of each tile
-    w_weights: np.ndarray   # [w, taps] fp32: column x's weights from w_lo[x]
-    w_lo: np.ndarray
-    w_hi: np.ndarray
-    pitch: int              # floats of one row-pass result row in shared
-    #                         memory: the widest tile, rounded up to 4
+    row_weights: np.ndarray  # [h, row_taps] fp32: output row y's weights
+    #                          from source row row_lo[y], 0 past row_hi[y]
+    row_lo: np.ndarray       # [h] int32 first source row of output row y
+    row_hi: np.ndarray       # [h] int32 one past its last
+    bands: np.ndarray        # [bands, 2] source rows [rs, re) of each band
+    tiles: np.ndarray        # [tiles, 2] source columns [cs, ce) of each tile
+    col_weights: np.ndarray  # [w, col_taps] fp32: column x's weights from
+    #                          col_lo[x], zero-padded to an even col_taps
+    col_lo: np.ndarray       # [w] int32 first source column of column x
+    col_hi: np.ndarray       # [w] int32 one past its last
+    depth: int               # ring slots: two bands' source rows
+    pitch: int               # bytes of a ring slot (a multiple of 16): the
+    #                          widest tile's row, up to 15 bytes after the
+    #                          slot's start
+    t_pitch: int             # floats of one row of the row pass's results:
+    #                          every column a tile's padded taps read, in
+    #                          whole chunks of YUV420_CHUNK
 
 
 class Yuv420Plan(NamedTuple):
     tile_w: int         # output columns per tile
     luma: PlanePlan
     chroma: PlanePlan
+    staged: bool        # a band's output goes through shared memory and
+    #                     out in 16-byte stores (one tile only)
     smem: int           # dynamic shared memory of one block, bytes
 
 
-def _yuv420_smem_bytes(luma_pitch: int, chroma_pitch: int) -> int:
-    # the row pass's results: YUV420_ROWS x pitch floats for Y, Cb, then Cr
-    return 4 * YUV420_ROWS * (luma_pitch + 2 * chroma_pitch)
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
-def yuv420_plan(src_h: int, src_w: int, h: int, w: int) -> Yuv420Plan:
-    """K2's launch plan: for each plane, its band weights per axis and the
-    source rows and columns of each band and tile. A block takes one band
-    of ``YUV420_ROWS`` output rows by one tile of output columns of one
-    image; the plan picks the fewest tiles whose row-pass results of all
-    three planes fit ``YUV420_SMEM_BUDGET`` (source rows stream from
-    device memory, so shared memory does not grow with the source: a
-    wider one gets narrower tiles). Raises ValueError for odd or zero
-    source dims, and for a horizontal downscale so steep (beyond about
-    384x) that one output column's taps do not fit."""
+def _yuv420_smem_bytes(tile_w: int, w: int, luma: PlanePlan,
+                       chroma: PlanePlan, staged: bool,
+                       out_itemsize: int) -> int:
+    """As ``layout`` in csrc/yuv420_resize_normalize.cu: the rings of Y,
+    Cb and Cr; the row pass's results (Y's, then Cb's and Cr's
+    interleaved); the column buffers, a tile's column weights and first
+    columns (Y's, then the chroma's; one buffer for a one-tile plan, else
+    three, one per item number mod 3); two items' row taps (first rows,
+    ends and
+    weights of a band's output rows, Y's then the chroma's); both planes'
+    bands and tiles and two items published for the loader; and, when
+    staged, a band's uint8 output."""
+    R = YUV420_ROWS
+    ring = luma.depth * luma.pitch + 2 * chroma.depth * chroma.pitch
+    t = 4 * R * (luma.t_pitch + 2 * chroma.t_pitch)
+    cols = sum(4 * _round_up(tile_w, 4) * (p.col_weights.shape[1] + 1)
+               for p in (luma, chroma))
+    taps = 2 * sum(_round_up(4 * R * (2 + p.row_weights.shape[1]), 16)
+                   for p in (luma, chroma))
+    spans = _round_up(16 * (len(luma.bands) + len(luma.tiles)), 16) + 32
+    stage = _round_up(15 + R * w * 3 * out_itemsize, 16) if staged else 0
+    return (ring + t + cols * (1 if len(luma.tiles) == 1 else 3) + taps
+            + spans + stage)
+
+
+def yuv420_plan(src_h: int, src_w: int, h: int, w: int,
+                out_itemsize: int = 1) -> Yuv420Plan:
+    """K2's launch plan for one geometry (``out_itemsize`` 1 for uint8
+    output, 4 for float32). A work item is a band of ``YUV420_ROWS``
+    output rows by a tile of output columns of one image; persistent
+    blocks walk runs of items, streaming each plane's source rows, cut to
+    the tile's column span, through a ring of two bands' rows in shared
+    memory. Per plane: the row taps of each output row, the column taps
+    of each output column (zero-padded to an even count), and the source
+    rows and columns of each band and tile. The plan picks the fewest
+    tiles of at most ``YUV420_THREADS`` columns whose shared memory fits
+    ``YUV420_SMEM_BUDGET`` (a larger source gets narrower tiles, not more
+    shared memory), and stages the uint8 output of a one-tile plan when
+    that fits too. Raises ValueError for
+    odd or zero source dims, and for a downscale so steep that one output
+    column does not fit."""
     if src_h <= 0 or src_w <= 0 or src_h % 2 or src_w % 2:
         raise ValueError(
             f"yuv420 needs positive even source dims, got {src_h}x{src_w}")
-    weights = [(band_weights(bilinear_weight_matrix(sh, h)),
-                band_weights(bilinear_weight_matrix(sw, w)))
-               for sh, sw in ((src_h, src_w), (src_h // 2, src_w // 2))]
-
-    def pitch(w_lo, w_hi, tile_w):
-        span = int(np.ptp(_spans(w_lo, w_hi, tile_w), axis=1).max())
-        return -(-span // 4) * 4
+    R = YUV420_ROWS
+    geometry = []
+    for sh, sw in ((src_h, src_w), (src_h // 2, src_w // 2)):
+        rows = band_weights(bilinear_weight_matrix(sh, h))
+        cw, clo, chi = band_weights(bilinear_weight_matrix(sw, w))
+        cw = np.pad(cw, ((0, 0), (0, cw.shape[1] % 2)))
+        bands = _spans(rows[1], rows[2], R)
+        geometry.append((rows, bands, (cw, clo, chi)))
 
     last_tile_w = 0
-    for n_tiles in range(1, w + 1):
+    for n_tiles in range(-(-w // YUV420_THREADS), w + 1):
         tile_w = -(-w // n_tiles)
-        if tile_w == last_tile_w:
+        if n_tiles > 1:
+            # tiles start at multiples of 4 columns (the kernel copies
+            # column weights 16 bytes at a time)
+            tile_w = _round_up(tile_w, 4)
+        if tile_w == last_tile_w or (n_tiles > 1 and tile_w >= w):
             continue
         last_tile_w = tile_w
-        pitches = [pitch(cw[1], cw[2], tile_w) for _, cw in weights]
-        smem = _yuv420_smem_bytes(*pitches)
+        planes = []
+        for (rw, rlo, rhi), bands, (cw, clo, chi) in geometry:
+            tiles = _spans(clo, chi, tile_w)
+            span = int(np.ptp(tiles, axis=1).max())
+            # every column a tile's padded taps read, past the tile's span
+            # where its last columns' padding reaches
+            reach = int((clo - tiles[np.arange(w) // tile_w, 0]).max()
+                        + cw.shape[1])
+            planes.append(PlanePlan(
+                rw, rlo, rhi, bands, tiles, cw, clo, chi,
+                2 * int(np.ptp(bands, axis=1).max()),
+                _round_up(15 + span, 16),
+                _round_up(max(span, reach), YUV420_CHUNK)))
+        smem = _yuv420_smem_bytes(tile_w, w, *planes, False, out_itemsize)
         if smem > YUV420_SMEM_BUDGET:
             continue
-        planes = []
-        for ((hw_, h_lo, h_hi), (ww_, w_lo, w_hi)), p in zip(weights,
-                                                            pitches):
-            bands = _spans(h_lo, h_hi, YUV420_ROWS)
-            planes.append(PlanePlan(
-                bands, _band_table(hw_, h_lo, h_hi, YUV420_ROWS, bands),
-                _spans(w_lo, w_hi, tile_w), ww_, w_lo, w_hi, p))
-        return Yuv420Plan(tile_w, planes[0], planes[1], smem)
+        staged = _yuv420_smem_bytes(tile_w, w, *planes, True, out_itemsize)
+        if (n_tiles == 1 and out_itemsize == 1
+                and staged <= YUV420_SMEM_BUDGET):
+            return Yuv420Plan(tile_w, *planes, True, staged)
+        return Yuv420Plan(tile_w, *planes, False, smem)
     raise ValueError(
         f"yuv420 resize {src_h}x{src_w} -> {h}x{w} needs more than "
         f"{YUV420_SMEM_BUDGET} bytes of shared memory per block")
 
-
 class _Plane(ctypes.Structure):
     # as struct Plane in csrc/yuv420_resize_normalize.cu
-    _fields_ = [("table", ctypes.c_void_p), ("bands", ctypes.c_void_p),
-                ("tiles", ctypes.c_void_p), ("ww", ctypes.c_void_p),
-                ("w_lo", ctypes.c_void_p), ("w_hi", ctypes.c_void_p),
-                ("span", ctypes.c_int), ("pitch", ctypes.c_int),
-                ("stride", ctypes.c_int)]
+    _fields_ = [("row_w", ctypes.c_void_p), ("row_lo", ctypes.c_void_p),
+                ("row_hi", ctypes.c_void_p), ("bands", ctypes.c_void_p),
+                ("tiles", ctypes.c_void_p), ("col_w", ctypes.c_void_p),
+                ("col_lo", ctypes.c_void_p), ("offset", ctypes.c_longlong),
+                ("stride", ctypes.c_int), ("row_taps", ctypes.c_int),
+                ("col_taps", ctypes.c_int), ("depth", ctypes.c_int),
+                ("pitch", ctypes.c_int), ("t_pitch", ctypes.c_int)]
 
 
 class _Yuv420Args(ctypes.Structure):
     # as struct Args in csrc/yuv420_resize_normalize.cu
     _fields_ = [("x", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("queue", ctypes.c_void_p),
                 ("luma", _Plane), ("chroma", _Plane),
                 ("row_bytes", ctypes.c_longlong),
-                ("H", ctypes.c_int), ("W", ctypes.c_int),
+                ("cr_offset", ctypes.c_longlong),
+                ("x_bytes", ctypes.c_longlong), ("items", ctypes.c_longlong),
                 ("h", ctypes.c_int), ("w", ctypes.c_int),
                 ("tile_w", ctypes.c_int), ("tiles", ctypes.c_int),
-                ("bands", ctypes.c_int),
+                ("bands", ctypes.c_int), ("staged", ctypes.c_int),
+                ("affine", ctypes.c_int),
                 ("scale", ctypes.c_float), ("offset", ctypes.c_float),
                 ("cr_r", ctypes.c_float), ("cb_g", ctypes.c_float),
                 ("cr_g", ctypes.c_float), ("cb_b", ctypes.c_float)]
@@ -564,6 +629,7 @@ def _yuv420_library():
     fn = lib.yuv420_resize_normalize_launch
     if not fn.argtypes:
         i, ip = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+        args_p = ctypes.POINTER(_Yuv420Args)
         lib.yuv420_resize_normalize_args_size.argtypes = []
         lib.yuv420_resize_normalize_args_size.restype = i
         size = lib.yuv420_resize_normalize_args_size()
@@ -571,66 +637,105 @@ def _yuv420_library():
             raise RuntimeError(
                 f"{KERNEL_YUV420}: the kernel's Args struct is {size} "
                 f"bytes, its ctypes mirror {ctypes.sizeof(_Yuv420Args)}")
-        lib.yuv420_resize_normalize_smem.argtypes = [i, i]
+        lib.yuv420_resize_normalize_smem.argtypes = [args_p, i]
         lib.yuv420_resize_normalize_smem.restype = i
         lib.yuv420_resize_normalize_occupancy.argtypes = [i, i, ip, ip, ip]
         lib.yuv420_resize_normalize_occupancy.restype = i
-        fn.argtypes = [ctypes.POINTER(_Yuv420Args), i, i, i,
-                       ctypes.c_void_p]
+        fn.argtypes = [args_p, i, i, i, ctypes.c_void_p]
         fn.restype = i
     return lib
 
 
+def _yuv420_occupancy(lib, smem: int, out_u8: int,
+                      device: torch.device) -> Tuple[int, int, int]:
+    """(blocks per SM, registers, local bytes per thread) of K2's
+    instance for ``out_u8`` with ``smem`` bytes, as the card reports
+    them."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        err = lib.yuv420_resize_normalize_occupancy(
+            out_u8, smem, *(ctypes.byref(v) for v in vals))
+    if err != 0 or vals[0].value < 1:
+        raise RuntimeError(f"{KERNEL_YUV420}: no block of {smem} bytes of "
+                           f"shared memory fits an SM (CUDA error {err})")
+    return vals[0].value, vals[1].value, vals[2].value
+
+
 @functools.lru_cache(maxsize=8)
 def _yuv420_device_plan(src_h: int, src_w: int, h: int, w: int,
-                        device: torch.device):
-    """The plan, its arrays on ``device`` and the kernel's view of them,
-    built once per geometry: per plane the band table, bands, tiles, the
-    column weights transposed ([taps, w], so a warp's loads of them
-    adjoin) and their bands, and the ``Plane`` struct that points at
-    them (the arrays are returned too: they must outlive it)."""
-    plan = yuv420_plan(src_h, src_w, h, w)
+                        out_itemsize: int, device: torch.device):
+    """The plan, its arrays on ``device``, the launch arguments that do
+    not change from call to call, and how many blocks the card holds at
+    once (the persistent grid's size), built once per geometry and
+    output type: per plane the row taps, bands, tiles, and the column
+    weights transposed ([col_taps, w], so a warp's loads of them
+    adjoin). The arrays are returned too: they must outlive the
+    arguments that point at them."""
+    plan = yuv420_plan(src_h, src_w, h, w, out_itemsize)
     arrays, planes = [], []
-    for p, stride in ((plan.luma, src_w), (plan.chroma, src_w // 2)):
+    offsets = (0, src_h * src_w)  # luma; Cb (Cr follows it)
+    for p, stride, off in zip((plan.luma, plan.chroma),
+                              (src_w, src_w // 2), offsets):
+        # the column weights transposed and both column arrays padded to
+        # a multiple of 4 columns, so the kernel copies them 16 bytes at
+        # a time
+        wp = _round_up(w, 4)
+        col_w = np.zeros((p.col_weights.shape[1], wp), np.float32)
+        col_w[:, :w] = p.col_weights.T
+        col_lo = np.zeros(wp, np.int32)
+        col_lo[:w] = p.col_lo
         a = [torch.as_tensor(np.ascontiguousarray(v), device=device)
-             for v in (p.band_table, p.bands, p.tiles, p.w_weights.T,
-                       p.w_lo, p.w_hi)]
+             for v in (p.row_weights, p.row_lo, p.row_hi, p.bands, p.tiles,
+                       col_w, col_lo)]
         arrays.append(a)
-        planes.append(_Plane(*(v.data_ptr() for v in a),
-                             p.band_table.shape[1], p.pitch, stride))
-    return plan, arrays, planes
+        planes.append(_Plane(*(v.data_ptr() for v in a), off, stride,
+                             p.row_weights.shape[1], p.col_weights.shape[1],
+                             p.depth, p.pitch, p.t_pitch))
+    args = _Yuv420Args(
+        None, None, None, *planes, src_h * src_w * 3 // 2,
+        src_h * src_w + (src_h // 2) * (src_w // 2), 0, 0, h, w,
+        plan.tile_w, len(plan.luma.tiles), len(plan.luma.bands),
+        int(plan.staged), 0, 1.0, 0.0, _CR_R, _CB_G, _CR_G, _CB_B)
+    lib = _yuv420_library()
+    out_u8 = int(out_itemsize == 1)
+    smem = lib.yuv420_resize_normalize_smem(ctypes.byref(args), out_u8)
+    if smem != plan.smem:
+        raise RuntimeError(f"plan reserves {plan.smem} bytes of shared "
+                           f"memory, the kernel lays out {smem}")
+    per_sm, _, _ = _yuv420_occupancy(lib, plan.smem, out_u8, device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return plan, arrays, args, per_sm * sms
 
 
 def yuv420_launch_config(x: torch.Tensor, src_hw: Tuple[int, int],
                          out_hw: Tuple[int, int],
                          out_dtype: torch.dtype = torch.float32) -> dict:
-    """How K2 launches for ``x`` (a CUDA tensor): the plan's bands and
-    tiles, grid and threads, its shared memory as the kernel lays it out,
-    and what the card reports (blocks per SM, registers, local memory per
-    thread)."""
+    """How K2 launches for ``x`` (a CUDA tensor): the plan's bands, tiles,
+    rings and staging, the persistent grid and the items each block
+    walks, its shared memory as the kernel lays it out, and what the card
+    reports (blocks per SM, registers, local memory per thread: 0 means no
+    spills)."""
     h, w = _check_yuv420(x, out_hw, out_dtype)
-    plan, _, _ = _yuv420_device_plan(*_yuv420_src(x, src_hw), h, w,
-                                     x.device)
+    plan, _, args, slots = _yuv420_device_plan(
+        *_yuv420_src(x, src_hw), h, w, out_dtype.itemsize, x.device)
     lib = _yuv420_library()
     u8 = int(out_dtype == torch.uint8)
-    smem = lib.yuv420_resize_normalize_smem(plan.luma.pitch,
-                                            plan.chroma.pitch)
+    smem = lib.yuv420_resize_normalize_smem(ctypes.byref(args), u8)
     if smem != plan.smem:
         raise RuntimeError(f"plan reserves {plan.smem} bytes of shared "
                            f"memory, the kernel lays out {smem}")
-    vals = [ctypes.c_int(0) for _ in range(3)]
-    with torch.cuda.device(x.device):
-        err = lib.yuv420_resize_normalize_occupancy(
-            u8, plan.smem, *(ctypes.byref(v) for v in vals))
-    if err != 0:
-        raise RuntimeError(f"{KERNEL_YUV420}: occupancy query failed with "
-                           f"CUDA error {err}")
+    per_sm, regs, local = _yuv420_occupancy(lib, plan.smem, u8, x.device)
     tiles, bands = len(plan.luma.tiles), len(plan.luma.bands)
-    return {"grid": [x.shape[0] * tiles * bands, 1, 1], "threads": THREADS,
+    items = x.shape[0] * tiles * bands
+    grid = min(items, slots)
+    return {"grid": [grid, 1, 1], "threads": YUV420_THREADS, "items": items,
+            "items_per_block": items / grid,
             "smem_bytes": plan.smem, "rows": YUV420_ROWS,
             "tile_w": plan.tile_w, "tiles": tiles, "bands": bands,
-            "blocks_per_sm": vals[0].value, "registers": vals[1].value,
-            "local_bytes": vals[2].value}
+            "ring_depth": [plan.luma.depth, plan.chroma.depth],
+            "ring_pitch": [plan.luma.pitch, plan.chroma.pitch],
+            "staged": plan.staged, "blocks_per_sm": per_sm,
+            "registers": regs, "local_bytes": local}
 
 
 def fused_yuv420_resize_normalize(
@@ -658,27 +763,56 @@ def fused_yuv420_resize_normalize(
                           out_dtype)
 
 
+_queues = {}
+
+
+def _yuv420_queue(device: torch.device, stream: int) -> torch.Tensor:
+    """The work queue K2's launches on ``stream`` share: two int32 0s,
+    which each launch leaves at 0. Launches on one stream run one after
+    another; each stream has its own, so concurrent launches do not share
+    one. Made at a stream's first launch; under CUDA graph capture that
+    is the capture stream's, so its zero-fill is captured too. (Two
+    graphs captured on one stream share its queue: do not replay them at
+    once.)"""
+    key = (device, stream)
+    queue = _queues.get(key)
+    if queue is None:
+        queue = _queues[key] = torch.zeros(2, dtype=torch.int32,
+                                           device=device)
+    return queue
+
+
 def _launch_yuv420(x: torch.Tensor, H: int, W: int, h: int, w: int,
                    scale: float, offset: float,
                    out_dtype: torch.dtype) -> torch.Tensor:
     global yuv420_launches
     if not x.is_contiguous():
         raise ValueError("the CUDA 4:2:0 kernel needs a contiguous input")
-    plan, _, (luma, chroma) = _yuv420_device_plan(H, W, h, w, x.device)
+    plan, _, template, slots = _yuv420_device_plan(
+        H, W, h, w, out_dtype.itemsize, x.device)
     n = x.shape[0]
     out = torch.empty((n, h, w, 3), dtype=out_dtype, device=x.device)
     if n == 0:
         return out
-    args = _Yuv420Args(
-        x.data_ptr(), out.data_ptr(), luma, chroma,
-        x.shape[1], H, W, h, w, plan.tile_w, len(plan.luma.tiles),
-        len(plan.luma.bands), scale, offset, _CR_R, _CB_G, _CR_G, _CB_B)
-    grid = n * len(plan.luma.tiles) * len(plan.luma.bands)
+    # the cached arguments, with this call's tensors, batch and affine
+    args = _Yuv420Args.from_buffer_copy(template)
+    args.x, args.out = x.data_ptr(), out.data_ptr()
+    args.x_bytes = x.numel()
+    args.items = n * template.tiles * template.bands
+    args.scale, args.offset = scale, offset
+    args.affine = int(scale != 1.0 or offset != 0.0)
+    grid = min(args.items, slots)
     fn = _yuv420_library().yuv420_resize_normalize_launch
-    with torch.cuda.device(x.device):
+    u8 = int(out_dtype == torch.uint8)
+    if x.device.index == torch.cuda.current_device():
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ctypes.byref(args), int(out_dtype == torch.uint8), grid,
-                 plan.smem, stream)
+        args.queue = _yuv420_queue(x.device, stream).data_ptr()
+        err = fn(ctypes.byref(args), u8, grid, plan.smem, stream)
+    else:
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            args.queue = _yuv420_queue(x.device, stream).data_ptr()
+            err = fn(ctypes.byref(args), u8, grid, plan.smem, stream)
     if err != 0:
         raise RuntimeError(
             f"{KERNEL_YUV420} kernel launch failed with CUDA error {err}")

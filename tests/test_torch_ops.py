@@ -373,6 +373,44 @@ def test_phase_variants_cut_the_kernel_once():
     assert result["rc"] != 0 and result["stdout"] == ""
 
 
+def test_k2_phase_variants_cut_the_kernel_once():
+    """k2_phases.py finds the design whose cuts all match K2's source once
+    (the persistent design today, and the one-block-per-item design of
+    its first version, kept so the script can time that too); each
+    variant changes the source, a cut that no longer matches stops the
+    script, and without CUDA it exits non-zero and prints nothing on
+    stdout."""
+    code = (
+        "import contextlib, io, json\n"
+        "import k2_phases\n"
+        "from sparkdl_tpu_torch.ops import _build\n"
+        "src = open(_build.CSRC_DIR + '/yuv420_resize_normalize.cu').read()\n"
+        "design = k2_phases.design_of(src)\n"
+        "changed = {n: k2_phases.variant_source(src, design, c) != src\n"
+        "           for n, c in k2_phases.VARIANTS.items()}\n"
+        "try:\n"
+        "    k2_phases.design_of('// edited\\n')\n"
+        "    stale = 'accepted'\n"
+        "except RuntimeError as e:\n"
+        "    stale = str(e)\n"
+        "out = io.StringIO()\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    rc = k2_phases.main()\n"
+        "print(json.dumps({'design': design, 'changed': changed,\n"
+        "                  'stale': stale, 'rc': rc,\n"
+        "                  'stdout': out.getvalue()}))\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["design"] == "persistent"
+    assert result["changed"].pop("full") is False
+    assert len(result["changed"]) == 7 and all(result["changed"].values())
+    assert "no design's cuts match" in result["stale"]
+    assert result["rc"] != 0 and result["stdout"] == ""
+
+
 # ---------------------------------------------------------------------------
 # The 4:2:0 op (K2's plain version) against the JAX package's, and K2's
 # launch plan and schedule
@@ -476,9 +514,9 @@ def test_yuv420_wrapper_rejects_other_dtypes_and_ranks():
 # full-width row pass does not fit the budget
 YUV_PLAN_CASES = [
     ((150, 150), (299, 299), 1), ((512, 512), (299, 299), 1),
-    ((298, 298), (299, 299), 1), ((3024, 4032), (299, 299), 6),
+    ((298, 298), (299, 299), 1), ((3024, 4032), (299, 299), 38),
     ((46, 62), (23, 37), 1), ((24, 24), (24, 24), 1),
-    ((16, 1600), (2, 64), 3),
+    ((16, 1600), (2, 64), 4),
 ]
 YUV_PLAN_IDS = [f"{s[0]}x{s[1]}to{d[0]}x{d[1]}" for s, d, _ in YUV_PLAN_CASES]
 
@@ -486,94 +524,327 @@ YUV_PLAN_IDS = [f"{s[0]}x{s[1]}to{d[0]}x{d[1]}" for s, d, _ in YUV_PLAN_CASES]
 @pytest.mark.parametrize("src,dst,tiles", YUV_PLAN_CASES, ids=YUV_PLAN_IDS)
 def test_yuv420_plan_stages_every_nonzero_weight_within_budget(src, dst,
                                                                tiles):
-    plan = infeed.yuv420_plan(*src, *dst)
-    assert plan.smem <= infeed.YUV420_SMEM_BUDGET
-    assert plan.smem == infeed._yuv420_smem_bytes(plan.luma.pitch,
-                                                  plan.chroma.pitch)
-    assert len(plan.luma.tiles) == tiles
-    for p, (sh, sw) in ((plan.luma, src), (plan.chroma,
-                                          (src[0] // 2, src[1] // 2))):
-        assert p.pitch % 4 == 0
-        assert p.pitch >= int(np.ptp(p.tiles, axis=1).max())
-        assert len(p.bands) == -(-dst[0] // infeed.YUV420_ROWS)
-        assert len(p.tiles) == len(plan.luma.tiles) == -(-dst[1] //
-                                                        plan.tile_w)
-        for src_n, dense, spans, step in (
-                (sh, infeed.bilinear_weight_matrix(sh, dst[0]), p.bands,
-                 infeed.YUV420_ROWS),
-                (sw, infeed.bilinear_weight_matrix(sw, dst[1]), p.tiles,
-                 plan.tile_w)):
-            block = np.arange(dense.shape[0]) // step
-            start, stop = spans[block, 0], spans[block, 1]
-            assert (0 <= start).all() and (stop <= src_n).all()
-            staged = ((np.arange(src_n)[None, :] >= start[:, None])
-                      & (np.arange(src_n)[None, :] < stop[:, None]))
-            assert not dense[~staged].any()
+    for itemsize in (1, 4):   # uint8 and float32 output
+        plan = infeed.yuv420_plan(*src, *dst, out_itemsize=itemsize)
+        assert plan.smem <= infeed.YUV420_SMEM_BUDGET
+        assert plan.smem == infeed._yuv420_smem_bytes(
+            plan.tile_w, dst[1], plan.luma, plan.chroma, plan.staged,
+            itemsize)
+        assert len(plan.luma.tiles) == tiles
+        # one tile stages its bands' uint8 output when that fits too
+        assert plan.staged == (tiles == 1 and itemsize == 1 and
+                               infeed._yuv420_smem_bytes(
+                                   plan.tile_w, dst[1], plan.luma,
+                                   plan.chroma, True, itemsize)
+                               <= infeed.YUV420_SMEM_BUDGET)
+        for p, (sh, sw) in ((plan.luma, src),
+                            (plan.chroma, (src[0] // 2, src[1] // 2))):
+            assert len(p.bands) == -(-dst[0] // infeed.YUV420_ROWS)
+            assert len(p.tiles) == -(-dst[1] // plan.tile_w)
+            spans = np.ptp(p.tiles, axis=1)
+            # a slot keeps its row's offset in its 16-byte chunk: up to 15
+            # bytes before the widest tile's row
+            assert p.pitch % 16 == 0 and p.pitch >= 15 + int(spans.max())
+            # the ring holds the band being computed and the next one's
+            # rows; a band starts where the one before ended or earlier,
+            # so a continuing band's new rows follow the last loaded
+            assert p.depth >= 2 * int(np.ptp(p.bands, axis=1).max())
+            assert (p.bands[1:, 0] <= p.bands[:-1, 1]).all()
+            # every column a tile's padded taps read is in its row-pass
+            # results, computed in whole chunks
+            taps = p.col_weights.shape[1]
+            tile = np.arange(dst[1]) // plan.tile_w
+            assert taps % 2 == 0
+            assert p.t_pitch % infeed.YUV420_CHUNK == 0
+            assert p.t_pitch >= int(spans.max())
+            assert ((p.col_lo - p.tiles[tile, 0] + taps) <= p.t_pitch).all()
+            for src_n, dense, lo, hi, weights, spans_, step in (
+                    (sh, infeed.bilinear_weight_matrix(sh, dst[0]),
+                     p.row_lo, p.row_hi, p.row_weights, p.bands,
+                     infeed.YUV420_ROWS),
+                    (sw, infeed.bilinear_weight_matrix(sw, dst[1]),
+                     p.col_lo, p.col_hi, p.col_weights, p.tiles,
+                     plan.tile_w)):
+                # each output's taps hold every nonzero weight, in order,
+                # with zeros past its count; its band or tile stages them
+                for o in range(dense.shape[0]):
+                    nt = hi[o] - lo[o]
+                    np.testing.assert_array_equal(weights[o, :nt],
+                                                  dense[o, lo[o]:hi[o]])
+                    assert not weights[o, nt:].any()
+                    assert not dense[o, :lo[o]].any()
+                    assert not dense[o, hi[o]:].any()
+                block = np.arange(dense.shape[0]) // step
+                start, stop = spans_[block, 0], spans_[block, 1]
+                assert (0 <= start).all() and (stop <= src_n).all()
+                assert (start <= lo).all() and (hi <= stop).all()
 
 
-def _run_yuv420_plan(x, plan, src_hw, out_hw, scale, offset):
-    """K2's schedule in numpy: one block per (image, tile, band), bands
-    fastest; the row pass of each plane sums the band's source rows in
-    ascending order with the band table's weights into a [rows, pitch]
-    tile, reading only the tile's source columns; the column pass reads
-    each output column's taps from that tile (checking they lie inside
-    the tile's span) and applies the colour math."""
+def _column_units(rows, cols, fast):
+    """(row, column) of each column-pass output in the kernel's thread
+    mapping. ``fast``: thread ``tid`` takes column ``tid`` and every row.
+    Otherwise thread ``tid`` starts at unit ``tid`` of ``rows * cols``
+    and steps by YUV420_THREADS units, carrying columns into rows without
+    dividing."""
+    threads = infeed.YUV420_THREADS
+    got = []
+    for tid in range(threads):
+        if fast:
+            got += [(r, tid) for r in range(rows)] if tid < cols else []
+            continue
+        dr, dx = threads // cols, threads % cols
+        r, xl = tid // cols, tid % cols
+        for u in range(tid, rows * cols, threads):
+            assert (r, xl) == divmod(u, cols)
+            got.append((r, xl))
+            xl += dx
+            r += dr
+            if xl >= cols:
+                xl -= cols
+                r += 1
+    return got
+
+
+def _run_yuv420_plan(x, plan, src_hw, out_hw, scale, offset, grid,
+                     out_dtype=np.float32, x_addr=0, out_addr=0, seed=11):
+    """K2's schedule in numpy, for ``grid`` persistent blocks and a
+    tensor and an output at byte addresses ``x_addr`` and ``out_addr``.
+    Work items (image, tile, band; bands fastest) are handed out one at a
+    time: block b takes items b and b + grid, then the queue hands each
+    next item to whichever block asks (drawn from ``seed``). A block's
+    loader runs two items in front, issued once an item's row pass is
+    done: it copies an item's source rows into each plane's ring after
+    the last item's, in 16-byte chunks from the row's own offset in its
+    chunk (bytes where the tensor's edge cuts a chunk) into slots that
+    start as garbage, its row taps into the buffer of its parity, and its
+    tile's column weights (zero past the tile) and first columns into the
+    column buffer (one for a one-tile plan, else by item number mod 3).
+    The row pass
+    walks each output row's own taps over chunks of columns, checking
+    that every slot and buffer it reads still holds its own; the column
+    pass takes the tile's zero-padded column taps, every output once in
+    the kernel's thread mapping; a one-tile uint8 plan stages each band's
+    output at the output's offset in its 16-byte chunk and writes it out,
+    before the next item's row pass, by whole chunks and bytes at the
+    ends. Sums are fp32 over ascending sources."""
     H, W = src_hw
     h, w = out_hw
     n = x.shape[0]
-    q = (H // 2) * (W // 2)
-    planes = (x[:, :H * W].reshape(n, H, W),
-              x[:, H * W:H * W + q].reshape(n, H // 2, W // 2),
-              x[:, H * W + q:].reshape(n, H // 2, W // 2))
-    n_bands, n_tiles = len(plan.luma.bands), len(plan.luma.tiles)
     R = infeed.YUV420_ROWS
-    out = np.full((n, h, w, 3), np.nan, np.float32)
     f32 = np.float32
-    for block in range(n * n_tiles * n_bands):
-        band, tile = block % n_bands, block // n_bands % n_tiles
-        img = block // n_bands // n_tiles
-        y0, x0 = band * R, tile * plan.tile_w
-        rows, cols = min(R, h - y0), min(plan.tile_w, w - x0)
-        sums = []
-        for p, src in zip((plan.luma, plan.chroma, plan.chroma), planes):
-            (vlo, vhi), (cs, ce) = p.bands[band], p.tiles[tile]
-            t = np.zeros((R, p.pitch), f32)
-            for v in range(vlo, vhi):
-                t[:, :ce - cs] += (p.band_table[band, v - vlo][:, None]
-                                   * src[img, v, cs:ce].astype(f32))
-            acc = np.zeros((rows, cols), f32)
-            for xl in range(cols):
-                xo = x0 + xl
-                lo, nt = p.w_lo[xo], p.w_hi[xo] - p.w_lo[xo]
-                assert cs <= lo and lo + nt <= ce
-                for j in range(nt):
-                    acc[:, xl] += p.w_weights[xo, j] * t[:rows, lo - cs + j]
-            sums.append(acc)
-        yf, cb, cr = sums[0], sums[1] - f32(128), sums[2] - f32(128)
-        rgb = np.stack([yf + f32(infeed._CR_R) * cr,
-                        yf + f32(infeed._CB_G) * cb + f32(infeed._CR_G) * cr,
-                        yf + f32(infeed._CB_B) * cb], axis=-1)
-        out[img, y0:y0 + rows, x0:x0 + cols] = (
-            np.clip(rgb, 0, 255) * f32(scale) + f32(offset))
-    return out
+    flat = np.ascontiguousarray(x).reshape(-1)
+    row_bytes = H * W * 3 // 2
+    # ring: (plane plan, the plane's offset in a packed row, row stride)
+    rings = {"y": (plan.luma, 0, W),
+             "cb": (plan.chroma, H * W, W // 2),
+             "cr": (plan.chroma, H * W + (H // 2) * (W // 2), W // 2)}
+    groups = {"y": ("y",), "c": ("cb", "cr")}
+    n_bands, n_tiles = len(plan.luma.bands), len(plan.luma.tiles)
+    items = n * n_tiles * n_bands
+    assert 1 <= grid <= items
+    itemsize = np.dtype(out_dtype).itemsize
+    taps = (plan.luma.col_weights.shape[1], plan.chroma.col_weights.shape[1])
+    fast = plan.tile_w <= infeed.YUV420_THREADS and taps in ((2, 2), (4, 2))
+    out = np.zeros(n * h * w * 3 * itemsize, np.uint8)
+    written = np.zeros(out.size, int)
+    rng = np.random.default_rng(seed)
+
+    # which items each block takes
+    taken = [[b] + ([b + grid] if b + grid < items else [])
+             for b in range(grid)]
+    for i in range(2 * grid, items):
+        taken[rng.integers(grid)].append(i)
+
+    def finish(rgb):   # clip, affine, and for uint8 the round
+        v = np.clip(rgb, 0, 255).astype(f32)
+        if scale != 1.0 or offset != 0.0:
+            v = (v * f32(scale)).astype(f32) + f32(offset)
+        if out_dtype == np.uint8:
+            return np.clip(np.rint(v), 0, 255).astype(np.uint8)
+        return v.astype(f32)
+
+    def copy_out(stage, img, band):
+        """The kernel's copy-out of a staged band: a whole 16-byte chunk
+        of the output in one store, the ragged ends byte by byte."""
+        y0 = band * R
+        nb = min(R, h - y0) * w * 3 * itemsize
+        base = (img * h + y0) * w * 3 * itemsize
+        head = (out_addr + base) & 15
+        for b0 in range(0, head + nb, 16):
+            lo, hi = max(b0, head), min(b0 + 16, head + nb)
+            # a whole chunk in one 16-byte store, else the band's bytes
+            assert (lo, hi) == (b0, b0 + 16) or b0 in (0, (head + nb - 1)
+                                                        // 16 * 16)
+            out[base - head + lo:base - head + hi] = stage[lo:hi]
+            written[base - head + lo:base - head + hi] += 1
+
+    for b in range(grid):
+        # each ring is flat bytes, with garbage past its last slot (the
+        # kernel reads on into the next region of shared memory)
+        ring = {k: rng.integers(0, 256, p.depth * p.pitch + 64, np.uint8)
+                for k, (p, _, _) in rings.items()}
+        held = {k: [None] * p.depth for k, (p, _, _) in rings.items()}
+        nexts = {key: 0 for key in groups}   # slot after the last row loaded
+        tap_buffers = [None, None]           # the band each buffer holds
+        col_buffers = [None, None, None]     # the tile each buffer holds
+        loads = iter(taken[b])
+        placed = []   # (img, tile, band, {ring: slot of the band's row 0})
+
+        def load_next():
+            i = next(loads, None)
+            if i is None:
+                return
+            band, rest = i % n_bands, i // n_bands
+            img, tile = rest // n_tiles, rest % n_tiles
+            slots = {}
+            for key, names in groups.items():
+                p = rings[names[0]][0]
+                vlo, ve = p.bands[band]
+                # the item's rows follow the last item's; a band spans at
+                # most half the ring, so no division is needed
+                slot0 = nexts[key]
+                assert ve - vlo <= p.depth // 2
+                nexts[key] = (slot0 + ve - vlo) % p.depth
+                cs, ce = p.tiles[tile]
+                for name in names:
+                    _, off, stride = rings[name]
+                    slots[name] = slot0
+                    for v in range(vlo, ve):
+                        slot = (slot0 + v - vlo) % p.depth
+                        src = img * row_bytes + off + v * stride + cs
+                        head = (x_addr + src) & 15
+                        dst = slot * p.pitch
+                        assert head + ce - cs <= p.pitch
+                        for c0 in range(0, head + ce - cs, 16):
+                            g = src - head + c0
+                            if 0 <= g and g + 16 <= flat.size:
+                                seg = slice(c0, c0 + 16)
+                            else:   # the row's bytes only
+                                seg = slice(max(c0, head),
+                                            min(c0 + 16, head + ce - cs))
+                            ring[name][dst + seg.start:dst + seg.stop] = \
+                                flat[src - head + seg.start:
+                                     src - head + seg.stop]
+                        held[name][slot] = (img, tile, v)
+            tap_buffers[len(placed) & 1] = band
+            if n_tiles > 1 or not placed:
+                col_buffers[len(placed) % 3 if n_tiles > 1 else 0] = tile
+            placed.append((img, tile, band, slots))
+
+        load_next()
+        load_next()
+        stage = rng.integers(0, 256, 16 + R * w * 3 * itemsize, np.uint8)
+        prev = None
+        for i in range(len(taken[b])):
+            img, tile, band, slots = placed[i]
+            assert tap_buffers[i & 1] == band
+            y0, x0 = band * R, tile * plan.tile_w
+            rows, cols = min(R, h - y0), min(plan.tile_w, w - x0)
+            if plan.staged and prev is not None:
+                copy_out(stage, *prev)
+            # row pass: each output row's own taps, all chunks at once
+            t = {}
+            for name, (p, off, stride) in rings.items():
+                t[name] = np.zeros((R, p.t_pitch), f32)
+                for k in range(rows):
+                    lo, hi = p.row_lo[y0 + k], p.row_hi[y0 + k]
+                    for j in range(hi - lo):
+                        slot = slots[name] + lo + j - p.bands[band, 0]
+                        assert slot < 2 * p.depth
+                        slot %= p.depth
+                        assert held[name][slot] == (img, tile, lo + j)
+                        src = (img * row_bytes + off + (lo + j) * stride
+                               + p.tiles[tile, 0])
+                        at = slot * p.pitch + ((x_addr + src) & 15)
+                        t[name][k] += (f32(p.row_weights[y0 + k, j])
+                                       * ring[name][at:at + p.t_pitch])
+            # item i + 2, once item i's rows and row taps are done with
+            load_next()
+            # column pass from the item's column buffer: the tile's column
+            # taps, zero-padded, and its first columns
+            assert col_buffers[i % 3 if n_tiles > 1 else 0] == tile
+            cw, cl = {}, {}
+            for key, p in (("y", plan.luma), ("c", plan.chroma)):
+                cw[key] = np.zeros((p.col_weights.shape[1], plan.tile_w), f32)
+                cw[key][:, :cols] = p.col_weights[x0:x0 + cols].T
+                cl[key] = np.zeros(plan.tile_w, np.int64)
+                cl[key][:cols] = p.col_lo[x0:x0 + cols] - p.tiles[tile, 0]
+            units = _column_units(rows, cols, fast)
+            assert sorted(units) == [(r, xl) for r in range(rows)
+                                     for xl in range(cols)]
+            sums = {}
+            for key, names in groups.items():
+                ntaps = cw[key].shape[0]
+                idx = cl[key][:cols, None] + np.arange(ntaps)
+                for name in names:
+                    acc = np.zeros((R, cols), f32)
+                    for j in range(ntaps):
+                        acc += cw[key][j, :cols] * t[name][:, idx[:, j]]
+                    sums[name] = acc[:rows]
+            yv, cb, cr = (sums["y"], sums["cb"] - f32(128),
+                          sums["cr"] - f32(128))
+            px = finish(np.stack([
+                yv + f32(infeed._CR_R) * cr,
+                yv + f32(infeed._CB_G) * cb + f32(infeed._CR_G) * cr,
+                yv + f32(infeed._CB_B) * cb], axis=-1))
+            base = (img * h + y0) * w * 3 * itemsize
+            if plan.staged:
+                # at the output's offset in its 16-byte chunk
+                assert x0 == 0 and cols == w and out_dtype == np.uint8
+                head = (out_addr + base) & 15
+                nb = rows * w * 3
+                assert head + nb <= stage.size
+                stage[head:head + nb] = px.reshape(-1)
+                prev = (img, band)
+            else:
+                for r in range(rows):
+                    e = (base + ((r * w + x0) * 3) * itemsize)
+                    seg = px[r].reshape(-1).view(np.uint8)
+                    out[e:e + seg.size] = seg
+                    written[e:e + seg.size] += 1
+        if plan.staged and prev is not None:
+            copy_out(stage, *prev)
+    assert (written == 1).all()
+    return out.view(out_dtype).reshape(n, h, w, 3)
 
 
-@pytest.mark.parametrize("src,dst,scale,offset", [
+# (source hw, output hw, scale, offset): a downscale to the [-1, 1] scale,
+# a small odd output, the identity, an upsample, a geometry that tiles its
+# columns, and the headline's 150x150 -> 299x299
+YUV_SCHEDULE_CASES = [
     ((40, 56), (24, 32), 1 / 127.5, -1.0),
     ((46, 62), (23, 37), 1.0, 0.0),
     ((24, 24), (24, 24), 1.0, 0.0),
     ((30, 20), (61, 45), 1.0, 0.0),
     ((16, 1600), (2, 64), 1.0, 0.0),
-], ids=["unit_downscale", "odd_output", "identity", "upsample",
-        "tiled_columns"])
+    ((150, 150), (299, 299), 1.0, 0.0),
+]
+
+
+@pytest.mark.parametrize("src,dst,scale,offset", YUV_SCHEDULE_CASES, ids=[
+    "unit_downscale", "odd_output", "identity", "upsample",
+    "tiled_columns", "headline"])
 def test_yuv420_plan_schedule_reproduces_plain(src, dst, scale, offset):
-    x = _packed(2, src, seed=3)
-    plan = infeed.yuv420_plan(*src, *dst)
-    got = _run_yuv420_plan(x, plan, src, dst, scale, offset)
+    n = 1 if src == (150, 150) else 2
+    x = _packed(n, src, seed=3)
     ref = infeed.fused_yuv420_resize_normalize_plain(
         torch.from_numpy(x), src, dst, scale, offset).numpy()
     tol = TOL_UNIT if scale != 1.0 else TOL_COUNTS
-    np.testing.assert_allclose(got, ref, rtol=0, atol=tol)
+    ref_u8 = infeed.round_to_uint8(torch.from_numpy(ref)).numpy()
+    for out_dtype, x_addr, out_addr in ((np.float32, 0, 0),
+                                        (np.uint8, 7, 5)):
+        plan = infeed.yuv420_plan(*src, *dst,
+                                  np.dtype(out_dtype).itemsize)
+        items = n * len(plan.luma.tiles) * len(plan.luma.bands)
+        # one block takes every item; a few blocks take items from the
+        # queue; one block an item
+        for grid in sorted({1, min(3, items), items}):
+            got = _run_yuv420_plan(x, plan, src, dst, scale, offset, grid,
+                                   out_dtype, x_addr, out_addr)
+            if out_dtype == np.float32:
+                np.testing.assert_allclose(got, ref, rtol=0, atol=tol)
+            else:   # a tie may round either way with the summation order
+                assert np.abs(got.astype(int) - ref_u8).max() <= 1
 
 
 def test_yuv420_plan_rejects_odd_sources_and_steep_downscales():

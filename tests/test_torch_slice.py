@@ -133,9 +133,10 @@ def test_device_resize_rounds_like_jax():
 
 
 def test_import_closure_and_chip_smoke_without_cuda():
-    """Importing the port and every submodule, and chip_smoke.py, loads
-    none of jax, flax, sparkdl_tpu, pyarrow, PIL or msgpack; and without
-    CUDA chip_smoke.py exits non-zero and prints nothing on stdout."""
+    """Importing the port and every submodule, chip_smoke.py and
+    k2_phases.py, loads none of jax, flax, sparkdl_tpu, pyarrow, PIL or
+    msgpack; and without CUDA chip_smoke.py and k2_phases.py exit non-zero
+    and print nothing on stdout."""
     code = (
         "import contextlib, importlib, io, json, pkgutil, runpy, sys\n"
         "import sparkdl_tpu_torch\n"
@@ -146,6 +147,8 @@ def test_import_closure_and_chip_smoke_without_cuda():
         "                             'DataFrame')\n"
         "                 if callable(getattr(sparkdl_tpu_torch, n)))\n"
         "smoke = runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
+        "sys.path.insert(0, '.')\n"
+        "phases = runpy.run_path('k2_phases.py', run_name='k2_phases')\n"
         "banned = ('jax', 'flax', 'sparkdl_tpu', 'pyarrow', 'PIL', "
         "'msgpack')\n"
         "loaded = sorted(n for n in sys.modules\n"
@@ -153,8 +156,9 @@ def test_import_closure_and_chip_smoke_without_cuda():
         "out = io.StringIO()\n"
         "with contextlib.redirect_stdout(out):\n"
         "    rc = smoke['main']()\n"
+        "    rc_phases = phases['main']()\n"
         "print(json.dumps({'mods': mods, 'loaded': loaded, 'rc': rc,\n"
-        "                  'exports': exports,\n"
+        "                  'rc_phases': rc_phases, 'exports': exports,\n"
         "                  'smoke_stdout': out.getvalue()}))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -167,7 +171,8 @@ def test_import_closure_and_chip_smoke_without_cuda():
     assert result["exports"] == ["DataFrame", "TensorTransformer",
                                  "readImagesPacked"]
     assert result["loaded"] == []
-    assert result["rc"] != 0 and result["smoke_stdout"] == ""
+    assert result["rc"] != 0 and result["rc_phases"] != 0
+    assert result["smoke_stdout"] == ""
 
 
 def test_default_device_raises_without_cuda(png_dir):
