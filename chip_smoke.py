@@ -12,16 +12,16 @@ Phases, one JSON line each on stdout:
                    shim with g++; ``host`` says whether the shim built,
                    and whether with libjpeg.
 3. ``kernel``    — K1 (RGB resize): holds the kernel against its plain
-                   PyTorch version on the card at the main path's shape
-                   and a few others (a phone-photo downscale, unaligned
-                   rows, tall images whose plans take shorter bands),
-                   times each case beside its bound with its launch
-                   configuration (grid, threads, shared memory, blocks
-                   per SM), times kernel, plain version and the PyTorch
-                   library call that computes the same function at the
-                   main shape, and checks and times the kernel at each
-                   band height it is built for at the main and the
-                   phone-photo shapes.
+                   PyTorch version on the card at the main path's shapes
+                   (512→299 and, ``main_224``, 512→224) and a few others
+                   (a phone-photo downscale, unaligned rows, tall images
+                   whose plans take shorter bands), times each case
+                   beside its bound with its launch configuration (grid,
+                   threads, shared memory, blocks per SM), times kernel,
+                   plain version and the PyTorch library call that
+                   computes the same function at both main shapes, and
+                   checks and times the kernel at each band height it
+                   is built for at the main and the phone-photo shapes.
 4. ``kernel_yuv420`` — K2 (4:2:0 resize + colour): the same for K2 at the
                    headline shape (uint8 and fp32 output), the RGB main
                    path's source size, bench.py's full-resolution 4:2:0
@@ -47,7 +47,20 @@ Phases, one JSON line each on stdout:
                    counts set to 0 just before it and read just after;
                    cross-checks one batch against the plain resize
                    feeding the same model.
-6. ``headline``  — drives the 4:2:0 path as the JAX package's benchmark
+6. ``predict``   — ``DeepImagePredictor(modelName="ResNet50",
+                   deviceResizeFrom=(512, 512), decodePredictions=True,
+                   topK=5)`` over the same frame, cold then counted (K1
+                   must launch 8 times); every row 5 float32 scores, best
+                   first; the decoded rows against ``decode_predictions``
+                   of an undecoded run, and one batch of probabilities
+                   against the plain resize feeding the same model.
+7. ``zoo``       — Xception, ResNet50, VGG16 and VGG19 at full width and
+                   depth each featurize one batch of 64 of those images
+                   through ``deviceResizeFrom`` (K1 once a model), against
+                   the same network built in float32 on the card and fed
+                   by the plain resize, within a bound counted in bf16
+                   roundings.
+8. ``headline``  — drives the 4:2:0 path as the JAX package's benchmark
                    headlines it: 512 seeded 150×150 textured images
                    packed as 4:2:0 rows (``rgbToYuv420``) in 8
                    partitions, through ``TensorTransformer`` over
@@ -56,13 +69,19 @@ Phases, one JSON line each on stdout:
                    the counted run (K2 must launch 8 times, K1 none);
                    cross-checks one batch against the plain 4:2:0 op
                    feeding the same model.
-7. ``kernels``   — each kernel's launches on its path and pass/fail.
+9. ``trained_predict`` — ``DeepImagePredictor(modelName="TestNet",
+                   decodePredictions=True, topK=1)`` with the committed,
+                   trained weights (read by the port's msgpack reader)
+                   over the held-out set its provenance names: accuracy
+                   at least 0.95, each decoded name the raw scores' best.
+10. ``kernels``  — each kernel's launches on its paths and pass/fail.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no last line; it does the same without CUDA.
-The weights are seeded-random (no download): the features are checked
-for shape, finiteness and agreement, not for meaning.
+Apart from TestNet's the weights are seeded-random (no download): the
+features are checked for shape, finiteness and agreement, not for
+meaning.
 """
 
 import json
@@ -89,6 +108,7 @@ FP32_FLOPS = 67e12
 MAIN_SHAPE = (64, 512, 512, 3)
 FEATURES = 2048          # InceptionV3's feature width
 MAIN_OUT = (299, 299)
+MAIN_OUT_224 = (224, 224)  # ResNet50's and VGG's input
 N_IMAGES = 512
 PARTITIONS = 8
 BATCH = 64
@@ -104,6 +124,25 @@ BOUND_FEATURES_REL = 2e-2
 # K2's colour math after the resize: 2 subtractions, 4 multiplies and 4
 # adds a pixel, then a clip (2) and the affine (2) a channel
 YUV420_FLOPS_PER_PIXEL = 10 + 3 * 4
+# the predict path: a ResNet50 classifier decoded to its top 5
+PREDICT_MODEL = "ResNet50"
+TOP_K = 5
+# the zoo phase: each model featurizes one batch of the 512×512 images
+ZOO_MODELS = ("Xception", "ResNet50", "VGG16", "VGG19")
+ZOO_IMAGES = 64
+# a zoo model in bf16 against the same network in float32, as max|diff| /
+# max|ref|: each step that rounds to bf16 on the longest path (the input
+# cast; each conv's output, its BatchNorm's or bias's, each residual add,
+# the global pool) errs by at most half a bf16 step (2^-9) relative, and
+# in the worst case these add up: ResNet50 1 + 2 + 16 × (3 × 2 + 1) + 1
+# = 116 roundings; Xception 1 + 2 × 2 + 3 × (2 × 3 + 1) + 8 × (3 × 3 + 1)
+# + (2 × 3 + 1) + 2 × 3 + 1 = 120 (a separable unit rounds its depthwise,
+# pointwise and BatchNorm outputs); VGG16 1 + 13 × 2 + 2 × 2 = 31 and
+# VGG19 1 + 16 × 2 + 2 × 2 = 37 (conv or dense output, bias)
+ZOO_ROUNDINGS = {"Xception": 120, "ResNet50": 116, "VGG16": 31, "VGG19": 37}
+BF16_HALF_STEP = 2.0 ** -9
+# the committed TestNet on its held-out set, as the JAX package's test
+TESTNET_MIN_ACCURACY = 0.95
 
 
 def emit(phase, **fields):
@@ -189,7 +228,6 @@ def kernel_speed(infeed, x, out_hw, out):
 
 
 def check_resize_kernel(torch, infeed):
-    import torch.nn.functional as F
     gen = torch.Generator().manual_seed(0)
     cases = [
         ("main", MAIN_SHAPE, MAIN_OUT, 1.0, 0.0, torch.uint8, BOUND_COUNTS),
@@ -210,6 +248,9 @@ def check_resize_kernel(torch, infeed):
         ("tall_rows2", (1, 6000, 16, 1), (8, 16), 1.0, 0.0, torch.uint8,
          BOUND_COUNTS),
         ("tall_rows1", (1, 10000, 64, 3), (8, 32), 1.0, 0.0, torch.uint8,
+         BOUND_COUNTS),
+        # the main path's images to ResNet50's and VGG's input
+        ("main_224", MAIN_SHAPE, MAIN_OUT_224, 1.0, 0.0, torch.uint8,
          BOUND_COUNTS),
     ]
     results = []
@@ -235,31 +276,8 @@ def check_resize_kernel(torch, infeed):
         if name == "main":
             main_err = err
 
-    x = inputs["main"][0]
-    xf = x.float().permute(0, 3, 1, 2)   # NCHW view, channels_last memory
-
-    def kernel():
-        return infeed.fused_resize_normalize(x, MAIN_OUT)
-
-    def plain():
-        return infeed.fused_resize_normalize_plain(x, MAIN_OUT)
-
-    def library():
-        return F.interpolate(xf, size=MAIN_OUT, mode="bilinear",
-                             antialias=True, align_corners=False)
-
-    # in turns: plain, kernel, kernel, plain (one card, one call), all
-    # eager through their Python entry points; then the kernel from a
-    # CUDA graph (device time; the plain version copies its weights from
-    # the host, which a graph cannot capture), and the library call
-    p1, k1, k2, p2 = (time_ms(plain), time_ms(kernel), time_ms(kernel),
-                      time_ms(plain))
-    d1, d2 = time_ms(kernel, graph=True), time_ms(kernel, graph=True)
-    lib_ms = time_ms(library)
-    lib_err = (library().permute(0, 2, 3, 1) - plain()).abs().max().item()
-    out = kernel()
-    bound_ms, bound_by, nbytes, flops = resize_bound_ms(x, out, infeed)
-    ms, device_ms = (k1 + k2) / 2, (d1 + d2) / 2
+    timing = main_timing(infeed, *inputs["main"][:2])
+    timing_224 = main_timing(infeed, *inputs["main_224"][:2])
     # the band height: the default against the others the kernel is built
     # for, each held to the plain version and with its launch configuration
     rows_sweep = {}
@@ -279,14 +297,43 @@ def check_resize_kernel(torch, infeed):
             if not err <= bound:
                 raise AssertionError(f"resize kernel, {name} at {rows} rows "
                                      f"a band: max|diff| {err} > {bound}")
-    timing = {**speed(bound_ms, nbytes, ms, device_ms),
-              "plain_ms": (p1 + p2) / 2, "library_ms": lib_ms,
-              "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-              "launch": infeed.launch_config(x, MAIN_OUT),
-              "ms_runs": [k1, k2], "device_ms_runs": [d1, d2],
-              "plain_ms_runs": [p1, p2], "rows_sweep": rows_sweep,
-              "library_max_abs_diff_vs_plain": lib_err}
-    return results, main_err, timing
+    return results, main_err, {**timing, "rows_sweep": rows_sweep,
+                               "main_224": timing_224}
+
+
+def main_timing(infeed, x, out_hw):
+    """Kernel, plain version and library call at one of the main path's
+    geometries, beside the kernel's bound."""
+    import torch.nn.functional as F
+    xf = x.float().permute(0, 3, 1, 2)   # NCHW view, channels_last memory
+
+    def kernel():
+        return infeed.fused_resize_normalize(x, out_hw)
+
+    def plain():
+        return infeed.fused_resize_normalize_plain(x, out_hw)
+
+    def library():
+        return F.interpolate(xf, size=out_hw, mode="bilinear",
+                             antialias=True, align_corners=False)
+
+    # in turns: plain, kernel, kernel, plain (one card, one call), all
+    # eager through their Python entry points; then the kernel from a
+    # CUDA graph (device time; the plain version copies its weights from
+    # the host, which a graph cannot capture), and the library call
+    p1, k1, k2, p2 = (time_ms(plain), time_ms(kernel), time_ms(kernel),
+                      time_ms(plain))
+    d1, d2 = time_ms(kernel, graph=True), time_ms(kernel, graph=True)
+    lib_ms = time_ms(library)
+    lib_err = (library().permute(0, 2, 3, 1) - plain()).abs().max().item()
+    bound_ms, bound_by, nbytes, flops = resize_bound_ms(x, kernel(), infeed)
+    return {**speed(bound_ms, nbytes, (k1 + k2) / 2, (d1 + d2) / 2),
+            "out_hw": list(out_hw), "plain_ms": (p1 + p2) / 2,
+            "library_ms": lib_ms, "bound_by": bound_by, "bytes": nbytes,
+            "flops": flops, "launch": infeed.launch_config(x, out_hw),
+            "ms_runs": [k1, k2], "device_ms_runs": [d1, d2],
+            "plain_ms_runs": [p1, p2],
+            "library_max_abs_diff_vs_plain": lib_err}
 
 
 def yuv420_bound_ms(x, src_hw, out, infeed):
@@ -484,8 +531,7 @@ def headline(torch, np, smi_line):
             x, HEADLINE_SRC, MAIN_OUT, out_dtype=torch.uint8)
     differing = int((y_plain != y_kernel).sum().item())
     ref = model.apply({"image": y_plain})["features"].float().cpu().numpy()
-    got = feats[1][:BATCH]
-    rel = float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+    rel = rel_diff(feats[1][:BATCH], ref)
     if not rel <= BOUND_FEATURES_REL:
         raise AssertionError(f"headline vs plain 4:2:0 path: relative "
                              f"max|diff| {rel} > {BOUND_FEATURES_REL}")
@@ -501,28 +547,62 @@ def headline(torch, np, smi_line):
          features_max_abs=float(np.abs(feats[1]).max()),
          crosscheck_rel_max_diff=rel, crosscheck_bound=BOUND_FEATURES_REL,
          crosscheck_pixels_differing=differing,
-         runner={k: getattr(transformer.metrics, k) for k in (
-             "rows", "batches", "seconds", "bytes_staged", "bytes_copied",
-             "transfer_wait_seconds")},
-         card=smi_line)
+         runner=runner_fields(transformer.metrics), card=smi_line)
     return launches[KERNEL_YUV420]
 
 
-def featurize(torch, np, smi_line):
-    from sparkdl_tpu_torch import DataFrame, DeepImageFeaturizer
+def rgb_frame(np):
+    """The RGB paths' input: 512 seeded 512×512 images as image structs in
+    a DataFrame of 8 partitions; (images, rows, frame, seconds to make)."""
+    from sparkdl_tpu_torch import DataFrame
     from sparkdl_tpu_torch.image.imageIO import imageArrayToStruct
-    from sparkdl_tpu_torch.models import zoo
-    from sparkdl_tpu_torch.ops import infeed
-    from sparkdl_tpu_torch.transformers.utils import round_to_uint8
-
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     imgs = rng.integers(0, 256, (N_IMAGES, 512, 512, 3), dtype=np.uint8)
     rows = [{"image": imageArrayToStruct(img, origin=f"img_{i:04d}")}
             for i, img in enumerate(imgs)]
     df = DataFrame.from_pylist(rows, num_partitions=PARTITIONS)
-    setup_s = time.perf_counter() - t0
+    return imgs, rows, df, time.perf_counter() - t0
 
+
+def check_order(out, rows):
+    if [r["origin"] for r in out["image"]] != \
+            [r["image"]["origin"] for r in rows]:
+        raise AssertionError("rows came back out of order")
+
+
+def rel_diff(got, ref):
+    """max|got - ref| / max|ref|."""
+    import numpy as np
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def plain_resized(torch, infeed, imgs, out_hw):
+    """The plain resize of ``imgs`` on the card with the featurizer's
+    round-cast, contiguous as the kernel's output is (so the model sees
+    the same layout, and cuDNN picks the same algorithms, as in the run),
+    and the kernel's, and how many values the two differ at."""
+    from sparkdl_tpu_torch.transformers.utils import round_to_uint8
+    x = torch.from_numpy(imgs).cuda()
+    with torch.inference_mode():
+        y_plain = round_to_uint8(infeed.fused_resize_normalize_plain(
+            x, out_hw)).contiguous()
+        y_kernel = round_to_uint8(infeed.fused_resize_normalize(x, out_hw))
+    return y_plain, int((y_plain != y_kernel).sum().item())
+
+
+def runner_fields(metrics):
+    return {k: getattr(metrics, k) for k in (
+        "rows", "batches", "seconds", "bytes_staged", "bytes_copied",
+        "transfer_wait_seconds")}
+
+
+def featurize(torch, np, smi_line, frame):
+    from sparkdl_tpu_torch import DeepImageFeaturizer
+    from sparkdl_tpu_torch.models import zoo
+    from sparkdl_tpu_torch.ops import infeed
+
+    imgs, rows, df, setup_s = frame
     featurizer = DeepImageFeaturizer(
         modelName="InceptionV3", inputCol="image", outputCol="features",
         deviceResizeFrom=(512, 512), batchSize=BATCH)
@@ -547,25 +627,14 @@ def featurize(torch, np, smi_line):
             raise AssertionError(f"features {f.shape}, finite="
                                  f"{np.isfinite(f).all()}")
     for _, o, _ in runs:
-        if [r["origin"] for r in o["image"]] != \
-                [r["image"]["origin"] for r in rows]:
-            raise AssertionError("rows came back out of order")
+        check_order(o, rows)
 
     # one batch through the plain resize, the same round-cast and the
     # same model (zoo weights are the same seeded init)
-    x = torch.from_numpy(imgs[:BATCH]).cuda()
-    with torch.inference_mode():
-        # contiguous, as the kernel's output is: the model then sees the
-        # same layout (and cuDNN picks the same algorithms) as in the run
-        y_plain = round_to_uint8(infeed.fused_resize_normalize_plain(
-            x, MAIN_OUT)).contiguous()
-        y_kernel = round_to_uint8(infeed.fused_resize_normalize(
-            x, MAIN_OUT))
-    differing = int((y_plain != y_kernel).sum().item())
+    y_plain, differing = plain_resized(torch, infeed, imgs[:BATCH], MAIN_OUT)
     mf = zoo.getModelFunction("InceptionV3", featurize=True)
     ref = mf.apply({"image": y_plain})["features"].float().cpu().numpy()
-    got = feats[1][:BATCH]
-    rel = float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+    rel = rel_diff(feats[1][:BATCH], ref)
     if not rel <= BOUND_FEATURES_REL:
         raise AssertionError(f"featurizer vs plain-resize path: relative "
                              f"max|diff| {rel} > {BOUND_FEATURES_REL}")
@@ -581,11 +650,237 @@ def featurize(torch, np, smi_line):
          features_max_abs=float(np.abs(feats[1]).max()),
          crosscheck_rel_max_diff=rel, crosscheck_bound=BOUND_FEATURES_REL,
          crosscheck_pixels_differing=differing,
-         runner={k: getattr(featurizer.metrics, k) for k in (
-             "rows", "batches", "seconds", "bytes_staged", "bytes_copied",
-             "transfer_wait_seconds")},
-         card=smi_line)
+         runner=runner_fields(featurizer.metrics), card=smi_line)
     return launches
+
+
+def predict(torch, np, smi_line, frame):
+    """``DeepImagePredictor(ResNet50, deviceResizeFrom=(512, 512),
+    decodePredictions=True, topK=5)`` over the featurize phase's frame,
+    cold then counted; its decoded rows against ``decode_predictions``
+    of the undecoded run, and one batch of its probabilities against the
+    plain resize feeding the same model. Returns K1's launches."""
+    from sparkdl_tpu_torch import DeepImagePredictor
+    from sparkdl_tpu_torch.models import zoo
+    from sparkdl_tpu_torch.ops import infeed
+
+    imgs, rows, df, _ = frame
+    kw = dict(modelName=PREDICT_MODEL, inputCol="image", outputCol="preds",
+              deviceResizeFrom=(512, 512), batchSize=BATCH)
+    predictor = DeepImagePredictor(decodePredictions=True, topK=TOP_K, **kw)
+    runs = []
+    for run in ("cold", "main"):
+        if run == "main":
+            # the counted run: the counts are 0 just before, read just after
+            infeed.launches = infeed.yuv420_launches = 0
+        t0 = time.perf_counter()
+        planned = predictor.transform(df)   # builds the model function
+        t1 = time.perf_counter()
+        out = planned.collect()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, out, t1 - t0))
+    launches = {KERNEL: infeed.launches, KERNEL_YUV420: infeed.yuv420_launches}
+    if launches != {KERNEL: N_IMAGES // BATCH, KERNEL_YUV420: 0}:
+        raise AssertionError(f"predict launches {launches}: K1 must launch "
+                             f"{N_IMAGES // BATCH} times and K2 none")
+    decoded = runs[1][1]["preds"]
+    check_order(runs[1][1], rows)
+    for row in decoded:
+        scores = [e["score"] for e in row]
+        if len(row) != TOP_K or \
+                not all(type(v) is np.float32 for v in scores) or \
+                not np.isfinite(scores).all() or \
+                any(a < b for a, b in zip(scores, scores[1:])):
+            raise AssertionError(f"decoded row {row}: want {TOP_K} "
+                                 "finite float32 scores, best first")
+
+    # the same frame undecoded: each decoded row is decode_predictions of
+    # the raw scores, up to the stated tolerance (the two runs are two
+    # executions of the model); class ids may swap only where two
+    # adjacent raw scores lie within it
+    raw_out = DeepImagePredictor(**kw).transform(df).collect()
+    raw = np.asarray(raw_out["preds"])
+    if raw.shape != (N_IMAGES, 1000) or not np.isfinite(raw).all():
+        raise AssertionError(f"raw predictions {raw.shape}")
+    t0 = time.perf_counter()   # the decode stage's work, on its own
+    want = zoo.decode_predictions(raw, top=TOP_K,
+                                  class_index=zoo.model_class_index(
+                                      PREDICT_MODEL))
+    decode_s = time.perf_counter() - t0
+    names = zoo.model_class_index(PREDICT_MODEL) or \
+        zoo._imagenet_class_names()
+    index = {c: i for i, (c, _) in names.items()}
+    worst = swaps = 0
+    for i, (got_row, want_row) in enumerate(zip(decoded, want)):
+        tol = BOUND_FEATURES_REL * float(raw[i].max())
+        for e, (c, d, score) in zip(got_row, want_row):
+            own = float(raw[i, index[e["class"]]])
+            worst = max(worst, abs(float(e["score"]) - own))
+            if abs(float(e["score"]) - own) > tol:
+                raise AssertionError(f"row {i}: decoded score {e} against "
+                                     f"its raw score {own}")
+            if e["class"] != c:
+                swaps += 1
+                if abs(own - score) > tol:
+                    raise AssertionError(f"row {i}: decoded {e}, "
+                                         f"decode_predictions {(c, d, score)}")
+
+    # one batch through the plain resize, the same round-cast and the
+    # same model
+    y_plain, differing = plain_resized(torch, infeed, imgs[:BATCH],
+                                       MAIN_OUT_224)
+    mf = zoo.getModelFunction(PREDICT_MODEL, featurize=False)
+    ref = mf.apply({"image": y_plain})["predictions"].float().cpu().numpy()
+    rel = rel_diff(raw[:BATCH], ref)
+    if not rel <= BOUND_FEATURES_REL:
+        raise AssertionError(f"predictor vs plain-resize path: relative "
+                             f"max|diff| {rel} > {BOUND_FEATURES_REL}")
+    warm_s = runs[1][0]
+    emit("predict", model=PREDICT_MODEL, images=N_IMAGES,
+         partitions=PARTITIONS, batch=BATCH, source_hw=[512, 512],
+         top_k=TOP_K, launches=launches, cold_s=runs[0][0], warm_s=warm_s,
+         warm_images_per_s=N_IMAGES / warm_s, warm_model_build_s=runs[1][2],
+         warm_collect_images_per_s=N_IMAGES / (warm_s - runs[1][2]),
+         decode_predictions_s=decode_s,
+         decoded_vs_raw_max_score_diff=worst,
+         decoded_vs_raw_class_swaps=swaps,
+         decoded_tolerance_rel=BOUND_FEATURES_REL,
+         top1_counts=len({row[0]["class"] for row in decoded}),
+         crosscheck_rel_max_diff=rel, crosscheck_bound=BOUND_FEATURES_REL,
+         crosscheck_pixels_differing=differing,
+         runner=runner_fields(predictor.metrics), card=smi_line)
+    return launches[KERNEL]
+
+
+def zoo_models(torch, np, smi_line, frame):
+    """Each of Xception, ResNet50, VGG16 and VGG19 at full width and depth
+    featurizes one batch of the 512×512 images through
+    ``deviceResizeFrom`` (cold, then counted), against the same network
+    built in float32 and fed by the plain resize. Returns K1's launches
+    over the counted runs."""
+    from sparkdl_tpu_torch import DataFrame, DeepImageFeaturizer
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.models import zoo
+    from sparkdl_tpu_torch.ops import infeed
+
+    imgs, rows, _, _ = frame
+    df = DataFrame.from_pylist(rows[:ZOO_IMAGES], num_partitions=1)
+    total = 0
+    results = []
+    for name in ZOO_MODELS:
+        spec = zoo.getKerasApplicationModel(name)
+        featurizer = DeepImageFeaturizer(
+            modelName=name, inputCol="image", outputCol="features",
+            deviceResizeFrom=(512, 512), batchSize=BATCH)
+        runs = []
+        for run in ("cold", "main"):
+            if run == "main":
+                # the counted run: counts 0 just before, read just after
+                infeed.launches = infeed.yuv420_launches = 0
+            t0 = time.perf_counter()
+            planned = featurizer.transform(df)   # builds the model function
+            t1 = time.perf_counter()
+            out = planned.collect()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0, out, t1 - t0))
+        launches = infeed.launches
+        if launches != ZOO_IMAGES // BATCH or infeed.yuv420_launches:
+            raise AssertionError(f"{name}: K1 launched {launches} times, "
+                                 f"K2 {infeed.yuv420_launches}")
+        total += launches
+        check_order(runs[1][1], rows[:ZOO_IMAGES])
+        feats = np.asarray(runs[1][1]["features"])
+        if feats.shape != (ZOO_IMAGES, spec.feature_dim) or \
+                not np.isfinite(feats).all():
+            raise AssertionError(f"{name}: features {feats.shape}, finite="
+                                 f"{np.isfinite(feats).all()}")
+
+        # the same weights in a float32 network, fed by the plain resize
+        y_plain, differing = plain_resized(torch, infeed, imgs[:ZOO_IMAGES],
+                                           spec.input_size)
+        net = spec.module_fn(dtype=torch.float32)
+        net.load_state_dict(zoo.load_state_dict(name), strict=True)
+        ref_mf = ModelFunction(
+            zoo.ZooModel(spec, net, featurize=True),
+            {"image": ((spec.height, spec.width, 3), np.uint8)},
+            ["features"], name=f"{name}:float32")
+        ref = ref_mf.apply({"image": y_plain})["features"].cpu().numpy()
+        rel = rel_diff(feats, ref)
+        bound = ZOO_ROUNDINGS[name] * BF16_HALF_STEP
+        warm_s = runs[1][0]
+        results.append({
+            "model": name, "input_hw": list(spec.input_size),
+            "features_shape": list(feats.shape), "finite": True,
+            "launches": {KERNEL: launches}, "cold_s": runs[0][0],
+            "warm_s": warm_s, "warm_images_per_s": ZOO_IMAGES / warm_s,
+            "warm_model_build_s": runs[1][2],
+            "warm_collect_images_per_s": ZOO_IMAGES / (warm_s - runs[1][2]),
+            "bf16_vs_fp32_rel_max_diff": rel, "bound": bound,
+            "bf16_roundings_on_longest_path": ZOO_ROUNDINGS[name],
+            "pixels_differing_kernel_vs_plain": differing,
+            "features_max_abs": float(np.abs(ref).max())})
+        if not rel <= bound:
+            raise AssertionError(f"{name}: bf16 vs float32 relative "
+                                 f"max|diff| {rel} > {bound}")
+        del featurizer, net, ref_mf, runs
+        torch.cuda.empty_cache()
+    emit("zoo", images=ZOO_IMAGES, batch=BATCH, source_hw=[512, 512],
+         models=results, card=smi_line)
+    return total
+
+
+def trained_predict(torch, np, smi_line):
+    """``DeepImagePredictor(TestNet, decodePredictions=True, topK=1)`` on
+    the card with the committed, trained weights (read by the port's
+    msgpack reader) over the held-out set its provenance names; accuracy
+    and each decoded name against the raw scores' best class."""
+    from sparkdl_tpu_torch import DataFrame, DeepImagePredictor
+    from sparkdl_tpu_torch.image.imageIO import imageArrayToStruct
+    from sparkdl_tpu_torch.models import zoo
+    from sparkdl_tpu_torch.models.testnet import synthetic_testnet_dataset
+    from sparkdl_tpu_torch.ops import infeed
+
+    provenance = zoo.weights_provenance("TestNet")
+    if provenance != "committed":
+        raise AssertionError(f"TestNet weights are {provenance!r}, not the "
+                             "committed artifact")
+    with open(os.path.join(zoo.ARTIFACTS_DIR,
+                           "TestNet.provenance.json")) as f:
+        ds = json.load(f)["dataset"]
+    x, labels = synthetic_testnet_dataset(
+        ds["n_eval"], seed=ds["eval_seed"], noise=ds["noise"],
+        proto_seed=ds["proto_seed"])
+    rows = [{"image": imageArrayToStruct(a, origin=f"eval_{i:04d}")}
+            for i, a in enumerate(x)]
+    df = DataFrame.from_pylist(rows, num_partitions=PARTITIONS)
+    kw = dict(modelName="TestNet", inputCol="image", outputCol="preds",
+              batchSize=BATCH)
+    infeed.launches = infeed.yuv420_launches = 0
+    t0 = time.perf_counter()
+    out = DeepImagePredictor(decodePredictions=True, topK=1, **kw) \
+        .transform(df).collect()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {KERNEL: infeed.launches, KERNEL_YUV420: infeed.yuv420_launches}
+    check_order(out, rows)
+    raw = np.asarray(DeepImagePredictor(**kw).transform(df).collect()["preds"])
+    top1 = []
+    for i, row in enumerate(out["preds"]):
+        (e,) = row
+        k = int(e["class"].split("_")[-1])
+        if e["description"] != f"prototype_{k}" or \
+                raw[i, k] != raw[i].max():
+            raise AssertionError(f"row {i}: decoded {e}, raw best class "
+                                 f"{int(raw[i].argmax())}")
+        top1.append(k)
+    accuracy = float((np.array(top1) == labels).mean())
+    emit("trained_predict", model="TestNet", weights=provenance,
+         dataset=ds, images=len(rows), accuracy=accuracy,
+         min_accuracy=TESTNET_MIN_ACCURACY, launches=launches,
+         seconds=seconds, card=smi_line)
+    if not accuracy >= TESTNET_MIN_ACCURACY:
+        raise AssertionError(f"TestNet held-out accuracy {accuracy} < "
+                             f"{TESTNET_MIN_ACCURACY}")
 
 
 def main():
@@ -642,22 +937,35 @@ def main():
                                     ptxas_spills(builds[KERNEL_YUV420][1]))
     emit("kernel_yuv420", name=KERNEL_YUV420, cases=yuv_cases, card=smi)
 
-    launches = featurize(torch, np, smi)
+    frame = rgb_frame(np)
+    # K1's launches on each of its paths' counted runs
+    k1_paths = {"featurize": featurize(torch, np, smi, frame),
+                "predict": predict(torch, np, smi, frame),
+                "zoo": zoo_models(torch, np, smi, frame)}
+    del frame
     yuv_launches = headline(torch, np, smi)
+    trained_predict(torch, np, smi)
 
+    launches = sum(k1_paths.values())
     emit("kernels", launches={KERNEL: launches, KERNEL_YUV420: yuv_launches},
-         passed=launches > 0 and yuv_launches > 0)
-    if launches == 0:
-        raise AssertionError(f"kernel {KERNEL} was not launched on the "
-                             "main path")
+         launches_by_path={KERNEL: k1_paths,
+                           KERNEL_YUV420: {"headline": yuv_launches}},
+         passed=all(k1_paths.values()) and yuv_launches > 0)
+    if not all(k1_paths.values()):
+        raise AssertionError(f"kernel {KERNEL} was not launched on each of "
+                             f"its paths: {k1_paths}")
     main = yuv_cases[0]
     kernels = [{
         "name": KERNEL, "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
+        "launches_by_path": k1_paths,
         "max_abs_err": main_err, "ms": timing["ms"],
         "device_ms": timing["device_ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"]}, {
+        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
+        "main_224": {k: timing["main_224"][k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}}, {
         "name": KERNEL_YUV420, "route": "cuda",
         "source": KERNEL_YUV420_SOURCE, "replaces": KERNEL_YUV420_REPLACES,
         "launches": yuv_launches, "max_abs_err": main["max_abs_err"],

@@ -1,7 +1,8 @@
 """sparkdl_tpu_torch — the PyTorch/CUDA port of sparkdl_tpu.
 
 The same pipeline surface as ``sparkdl_tpu`` (``readImages`` →
-``DeepImageFeaturizer`` → a features column, and ``readImagesPacked`` →
+``DeepImageFeaturizer`` or ``DeepImagePredictor`` over every model of the
+zoo → a features or predictions column, and ``readImagesPacked`` →
 ``TensorTransformer`` over a device-resize model), run by PyTorch on an
 NVIDIA GPU, with the JAX package's hand-written TPU kernel and its
 4:2:0 resize-and-colour op rewritten as CUDA kernels
@@ -26,6 +27,8 @@ _EXPORTS = {
                          "readImagesPacked"),
     "DeepImageFeaturizer": ("sparkdl_tpu_torch.transformers.named_image",
                             "DeepImageFeaturizer"),
+    "DeepImagePredictor": ("sparkdl_tpu_torch.transformers.named_image",
+                           "DeepImagePredictor"),
     "ImageTransformer": ("sparkdl_tpu_torch.transformers.image_transform",
                          "ImageTransformer"),
     "TensorTransformer": ("sparkdl_tpu_torch.transformers.tensor_transform",

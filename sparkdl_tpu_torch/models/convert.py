@@ -2,17 +2,34 @@
 
 The JAX package's variables are ``{"params": ..., "batch_stats": ...}``
 trees of arrays keyed by flax module names. The port's modules carry
-the same names (``ConvBN_3``, ``InceptionBlockB_1``, ...), except the
-three leaf modules renamed below, so a variable's torch key is its flax
-path with those renamed and the leaf mapped:
+the same names (``ConvBN_3``, ``InceptionBlockB_1``, ``Conv_0`` of VGG,
+...), except the leaf modules renamed by their parent, so a variable's
+torch key is its flax path with those renamed and the leaf mapped. The
+parent is known by what it holds — a ``BatchNorm_0`` beside its conv(s)
+is a ``ConvBN`` or a ``SeparableConvBN``, wherever it sits (a lone layer
+is the tree's root):
 
-* conv kernel HWIO → ``conv.weight`` OIHW;
-* Dense kernel ``(in, out)`` → ``fc.weight`` ``(out, in)``;
+* in a ``ConvBN`` (``Conv_0`` + ``BatchNorm_0``): ``Conv_0`` → ``conv``,
+  ``BatchNorm_0`` → ``bn``;
+* in a ``SeparableConvBN`` (``Conv_0``, ``Conv_1`` + ``BatchNorm_0``):
+  ``Conv_0`` (the depthwise conv) → ``depthwise``, ``Conv_1`` (the
+  pointwise conv) → ``pointwise``, ``BatchNorm_0`` → ``bn``;
+* a model's single head ``Dense_0`` (no ``Dense_1`` beside it) →
+  ``fc``; VGG's ``Conv_0…Conv_12`` and ``Dense_0…Dense_2`` (no
+  BatchNorm beside them) keep their names.
+
+Leaves:
+
+* conv kernel HWIO → ``weight`` OIHW (a depthwise kernel
+  ``(kh, kw, 1, C)`` becomes ``(C, 1, kh, kw)``, the layout of a conv
+  with ``groups=C``);
+* Dense kernel ``(in, out)`` → ``weight`` ``(out, in)``;
 * BatchNorm ``scale``/``bias`` (params) → ``bn.weight``/``bn.bias``,
   ``mean``/``var`` (batch_stats) → ``bn.running_mean``/``running_var``.
 
-Leaves are anything ``numpy.asarray`` reads (numpy or jax arrays); the
-bridge imports neither jax nor flax.
+Leaves are anything ``numpy.asarray`` reads (numpy or jax arrays, or the
+views ``models/msgpack.py`` returns); the bridge imports neither jax nor
+flax.
 """
 
 from __future__ import annotations
@@ -23,7 +40,10 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-_MODULE_NAMES = {"Conv_0": "conv", "BatchNorm_0": "bn", "Dense_0": "fc"}
+# leaf-module renames in a ConvBN and in a SeparableConvBN
+_CONV_BN = {"Conv_0": "conv", "BatchNorm_0": "bn"}
+_SEPARABLE = {"Conv_0": "depthwise", "Conv_1": "pointwise",
+              "BatchNorm_0": "bn"}
 _LEAF_NAMES = {
     ("params", "kernel"): "weight",
     ("params", "scale"): "weight",
@@ -33,10 +53,20 @@ _LEAF_NAMES = {
 }
 
 
+def _module_name(name: str, siblings) -> str:
+    if "BatchNorm_0" in siblings:
+        renames = _SEPARABLE if "Conv_1" in siblings else _CONV_BN
+        return renames.get(name, name)
+    if name == "Dense_0" and "Dense_1" not in siblings:
+        return "fc"
+    return name
+
+
 def _walk(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], object]]:
+    """(torch module path + flax leaf name, leaf) for every leaf."""
     for key, value in tree.items():
         if isinstance(value, Mapping):
-            yield from _walk(value, path + (str(key),))
+            yield from _walk(value, path + (_module_name(str(key), tree),))
         else:
             yield path + (str(key),), value
 
@@ -63,7 +93,6 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
                     raise ValueError(
                         f"unexpected kernel rank {arr.ndim} at "
                         f"{'/'.join(path)}")
-            torch_key = ".".join([_MODULE_NAMES.get(m, m) for m in modules]
-                                 + [_LEAF_NAMES[key]])
+            torch_key = ".".join(modules + [_LEAF_NAMES[key]])
             out[torch_key] = torch.tensor(arr)   # a contiguous copy
     return out

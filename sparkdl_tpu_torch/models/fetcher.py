@@ -1,8 +1,9 @@
 """Hash-verified cache of model weights — counterpart of
 ``sparkdl_tpu/models/fetcher.py`` for torch state dicts.
 
-Entries are ``torch.save`` blobs with a ``.sha256`` sidecar, checked on
-every load. The cache directory is ``$SPARKDL_TPU_TORCH_MODEL_CACHE``,
+Entries are ``torch.save`` blobs (``<name>.pt``) or the JAX package's
+flax blobs (``<name>.msgpack``, read by ``models/msgpack.py``), each with
+a ``.sha256`` sidecar, checked on every load. The cache directory is ``$SPARKDL_TPU_TORCH_MODEL_CACHE``,
 else ``~/.cache/sparkdl_tpu_torch/models``. Nothing is downloaded: a
 cache is seeded with :meth:`ModelFetcher.put` (for example with weights
 converted from the JAX package by ``models/convert.py``).
@@ -62,11 +63,10 @@ class ModelFetcher:
         self._commit(fileName, blob, digest)
         return digest
 
-    def get(self, fileName: str,
-            expected_sha256: Optional[str] = None
-            ) -> Dict[str, torch.Tensor]:
-        """Load a cached state dict onto the CPU, verifying its hash
-        (the explicit one, else the sidecar)."""
+    def get_bytes(self, fileName: str,
+                  expected_sha256: Optional[str] = None) -> bytes:
+        """A cache entry's bytes, verified against its hash (the explicit
+        one, else the sidecar)."""
         path = self._path(fileName)
         with open(path, "rb") as f:
             blob = f.read()
@@ -81,5 +81,12 @@ class ModelFetcher:
                 f"hash mismatch for {fileName}: got {digest[:12]}…, "
                 f"expected {check[:12]}… — delete the cache entry and "
                 "seed it again")
+        return blob
+
+    def get(self, fileName: str,
+            expected_sha256: Optional[str] = None
+            ) -> Dict[str, torch.Tensor]:
+        """Load a cached state dict onto the CPU, verifying its hash."""
+        blob = self.get_bytes(fileName, expected_sha256)
         return torch.load(io.BytesIO(blob), map_location="cpu",
                           weights_only=True)

@@ -70,32 +70,67 @@ class BatchNorm(nn.Module):
         return y * mul.view(shape) + self.bias.view(shape)
 
 
+def conv2d(x: torch.Tensor, conv: nn.Conv2d, padding: Padding,
+           dtype: torch.dtype) -> torch.Tensor:
+    """``conv``'s weights (and bias) applied in ``dtype``, with flax's
+    padding: input and weights cast to ``dtype``, and the bias added to
+    the ``dtype`` result, as ``nn.Conv(dtype=...)`` does."""
+    x, pad = _pad(x.to(dtype), _resolve_pads(x, padding, conv.kernel_size,
+                                             conv.stride))
+    y = F.conv2d(x, conv.weight.to(dtype), stride=conv.stride, padding=pad,
+                 groups=conv.groups)
+    if conv.bias is not None:
+        y = y + conv.bias.to(dtype).view(1, -1, 1, 1)
+    return y
+
+
 class ConvBN(nn.Module):
-    """Conv (no bias) + BatchNorm + optional ReLU — the ``conv2d_bn`` unit
-    every zoo CNN is built from."""
+    """Conv (bias optional) + BatchNorm + optional ReLU — the
+    ``conv2d_bn`` unit every zoo CNN is built from (ResNet50's convs
+    carry biases)."""
 
     def __init__(self, in_features: int, features: int,
                  kernel: Tuple[int, int] = (3, 3),
                  strides: Tuple[int, int] = (1, 1),
                  padding: Padding = "SAME", relu: bool = True,
-                 bn_epsilon: float = 1e-3,
+                 bn_epsilon: float = 1e-3, use_bias: bool = False,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self.kernel = tuple(kernel)
-        self.strides = tuple(strides)
         self.padding = padding
         self.relu = relu
         self.dtype = dtype
-        self.conv = nn.Conv2d(in_features, features, self.kernel,
-                              stride=self.strides, bias=False)
+        self.conv = nn.Conv2d(in_features, features, tuple(kernel),
+                              stride=tuple(strides), bias=use_bias)
         self.bn = BatchNorm(features, bn_epsilon)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, pad = _pad(x.to(self.dtype),
-                      _resolve_pads(x, self.padding, self.kernel,
-                                    self.strides))
-        y = F.conv2d(x, self.conv.weight.to(self.dtype),
-                     stride=self.strides, padding=pad)
+        y = conv2d(x, self.conv, self.padding, self.dtype)
+        y = self.bn(y).to(self.dtype)
+        return F.relu(y) if self.relu else y
+
+
+class SeparableConvBN(nn.Module):
+    """Depthwise conv (``groups=C``, SAME) + pointwise 1×1 conv, both
+    without bias, then BatchNorm (eps 1e-3) and an optional ReLU —
+    Xception's separable_conv unit."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel: Tuple[int, int] = (3, 3),
+                 strides: Tuple[int, int] = (1, 1), relu: bool = True,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.relu = relu
+        self.dtype = dtype
+        self.depthwise = nn.Conv2d(in_features, in_features, tuple(kernel),
+                                   stride=tuple(strides),
+                                   groups=in_features, bias=False)
+        self.pointwise = nn.Conv2d(in_features, features, (1, 1),
+                                   bias=False)
+        self.bn = BatchNorm(features, 1e-3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = conv2d(x, self.depthwise, "SAME", self.dtype)
+        y = conv2d(y, self.pointwise, "SAME", self.dtype)
         y = self.bn(y).to(self.dtype)
         return F.relu(y) if self.relu else y
 

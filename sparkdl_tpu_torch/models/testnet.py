@@ -31,3 +31,21 @@ class TestNet(nn.Module):
         if features_only:
             return feats
         return self.fc(feats)
+
+
+def synthetic_testnet_dataset(n: int, seed: int = 0,
+                              noise: float = 40.0,
+                              proto_seed: int = 1234):
+    """The port's copy of the JAX package's dataset of the committed
+    TestNet: 10 classes, each a fixed random 32×32×3 prototype (from
+    ``proto_seed``), samples the prototype plus Gaussian pixel noise
+    (from ``seed``). Returns ``(images uint8 [n, 32, 32, 3], labels
+    int32 [n])``; the artifact's provenance records the parameters of
+    its held-out split."""
+    import numpy as np
+    protos = np.random.default_rng(proto_seed).integers(
+        0, 255, size=(10, 32, 32, 3)).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 10, size=n).astype(np.int32)
+    imgs = protos[labels] + rng.normal(0.0, noise, size=(n, 32, 32, 3))
+    return np.clip(imgs, 0, 255).astype(np.uint8), labels

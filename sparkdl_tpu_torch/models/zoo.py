@@ -1,18 +1,21 @@
-"""Named-model zoo registry — counterpart of
-``sparkdl_tpu/models/zoo.py`` for the models this port carries
-(InceptionV3 and the tiny TestNet).
+"""Named-model zoo registry — counterpart of ``sparkdl_tpu/models/zoo.py``:
+every model the JAX zoo carries (InceptionV3, Xception, ResNet50, VGG16,
+VGG19 and the tiny TestNet), their weights, class indices and
+``decode_predictions``.
 
 Preprocessing is part of the model function: uint8 NHWC comes in, is
-viewed as NCHW (channels_last in memory, no copy), scaled on the device
-and fed to the network.
+viewed as NCHW (channels_last in memory, no copy), preprocessed on the
+device and fed to the network.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 import logging
 import math
+import os
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -23,12 +26,32 @@ from sparkdl_tpu_torch._device import DeviceLike, resolve_device
 from sparkdl_tpu_torch.graph.function import ModelFunction
 from sparkdl_tpu_torch.models.fetcher import ModelFetcher
 from sparkdl_tpu_torch.models.inception import InceptionV3
+from sparkdl_tpu_torch.models.resnet import ResNet50
 from sparkdl_tpu_torch.models.testnet import TestNet
+from sparkdl_tpu_torch.models.vgg import VGG16, VGG19
+from sparkdl_tpu_torch.models.xception import Xception
 
 
 def _inception_preprocess(x: torch.Tensor) -> torch.Tensor:
     """uint8 → [-1, 1] float32 (x/127.5 - 1, InceptionV3/Xception)."""
     return x.to(torch.float32) * (1.0 / 127.5) - 1.0
+
+
+_CAFFE_MEAN = (103.939, 116.779, 123.68)  # BGR means
+
+
+@functools.lru_cache(maxsize=None)   # one small tensor per device
+def _caffe_mean(device: torch.device) -> torch.Tensor:
+    # made once: a copy from the host each batch would wait for the
+    # device's queue
+    return torch.tensor(_CAFFE_MEAN, dtype=torch.float32,
+                        device=device).view(1, 3, 1, 1)
+
+
+def _caffe_preprocess(x: torch.Tensor) -> torch.Tensor:
+    """uint8 RGB NCHW → BGR float32, ImageNet-mean-subtracted (VGG and
+    ResNet50)."""
+    return torch.flip(x.to(torch.float32), [1]) - _caffe_mean(x.device)
 
 
 def _testnet_preprocess(x: torch.Tensor) -> torch.Tensor:
@@ -40,7 +63,7 @@ class NamedImageModel:
     """Zoo entry: constructor, input size, preprocess, output widths."""
 
     name: str
-    module_fn: Callable[[], nn.Module]
+    module_fn: Callable[..., nn.Module]   # (dtype=...) -> module
     input_size: Tuple[int, int]           # (height, width)
     preprocess: Callable[[torch.Tensor], torch.Tensor]
     feature_dim: int
@@ -59,6 +82,14 @@ KERAS_APPLICATION_MODELS: Dict[str, NamedImageModel] = {
     m.name: m for m in [
         NamedImageModel("InceptionV3", InceptionV3, (299, 299),
                         _inception_preprocess, 2048),
+        NamedImageModel("Xception", Xception, (299, 299),
+                        _inception_preprocess, 2048),
+        NamedImageModel("ResNet50", ResNet50, (224, 224),
+                        _caffe_preprocess, 2048),
+        NamedImageModel("VGG16", VGG16, (224, 224),
+                        _caffe_preprocess, 4096),
+        NamedImageModel("VGG19", VGG19, (224, 224),
+                        _caffe_preprocess, 4096),
         NamedImageModel("TestNet", TestNet, (32, 32),
                         _testnet_preprocess, 16, num_classes=10),
     ]
@@ -91,7 +122,7 @@ def init_state_dict(name: str, seed: int = 0) -> Dict[str, torch.Tensor]:
     state = {}
     for key, value in module.state_dict().items():
         value = torch.empty_like(value, dtype=torch.float32)
-        if key.endswith("conv.weight") or key.endswith("fc.weight"):
+        if key.endswith(".weight") and value.ndim > 1:   # conv, dense
             fan_in = value[0].numel()
             # unit variance after truncation at ±2σ (flax's
             # truncated_normal variance scaling)
@@ -106,24 +137,57 @@ def init_state_dict(name: str, seed: int = 0) -> Dict[str, torch.Tensor]:
     return state
 
 
+# The port's copy of the JAX package's committed artifacts: the trained
+# TestNet (flax msgpack), its sha256, class index and provenance.
+ARTIFACTS_DIR = os.path.join(os.path.dirname(__file__), "artifacts")
+
 _warned_random: set = set()
+
+
+def _from_msgpack(fetcher: ModelFetcher,
+                  fileName: str) -> Dict[str, torch.Tensor]:
+    """A flax blob, hash-checked, read by the port's msgpack reader and
+    renamed by the weight bridge."""
+    from sparkdl_tpu_torch.models import msgpack
+    from sparkdl_tpu_torch.models.convert import flax_to_state_dict
+    return flax_to_state_dict(msgpack.loads(fetcher.get_bytes(fileName)))
+
+
+def _resolve_weights(name: str, fetcher: Optional[ModelFetcher]):
+    """The provenance cascade, in priority order — one source of truth
+    for :func:`weights_provenance` and :func:`load_state_dict`, as in the
+    JAX package. Returns ``(source, loader)``; ``loader()`` gives the
+    state dict (no loader for the seeded init)."""
+    fetcher = fetcher or ModelFetcher()
+    if fetcher.has(f"{name}.pt"):
+        return "cache", lambda: fetcher.get(f"{name}.pt")
+    fileName = f"{name}.msgpack"
+    if fetcher.has(fileName):
+        return "cache", lambda: _from_msgpack(fetcher, fileName)
+    if os.path.exists(os.path.join(ARTIFACTS_DIR, fileName)):
+        return "committed", lambda: _from_msgpack(
+            ModelFetcher(cache_dir=ARTIFACTS_DIR), fileName)
+    return "random", None
 
 
 def weights_provenance(name: str,
                        fetcher: Optional[ModelFetcher] = None) -> str:
-    """``"cache"`` when the fetcher cache holds ``<name>.pt``, else
-    ``"random"`` (seeded init)."""
-    fetcher = fetcher or ModelFetcher()
-    return "cache" if fetcher.has(f"{name}.pt") else "random"
+    """Where :func:`load_state_dict` gets this model's weights:
+    ``"cache"`` (the fetcher cache's ``<name>.pt``, else its
+    ``<name>.msgpack``, a JAX package cache entry), ``"committed"`` (the
+    trained artifact shipped in the package), or ``"random"`` (seeded
+    init)."""
+    return _resolve_weights(name, fetcher)[0]
 
 
 def load_state_dict(name: str, fetcher: Optional[ModelFetcher] = None,
                     seed: int = 0) -> Dict[str, torch.Tensor]:
-    """The cached weights when present, else the seeded init — with a
-    LOUD warning, because a random featurizer emits structured noise."""
-    fetcher = fetcher or ModelFetcher()
-    if fetcher.has(f"{name}.pt"):
-        return fetcher.get(f"{name}.pt")
+    """The model's weights by provenance priority, else the seeded init —
+    with a LOUD warning, because a random featurizer emits structured
+    noise and a random predictor's labels are meaningless."""
+    _, loader = _resolve_weights(name, fetcher)
+    if loader is not None:
+        return loader()
     if name not in _warned_random:
         _warned_random.add(name)
         logging.getLogger(__name__).warning(
@@ -131,7 +195,9 @@ def load_state_dict(name: str, fetcher: Optional[ModelFetcher] = None,
             "structured noise and predicted labels are meaningless. "
             "Nothing is downloaded — convert weights with "
             "models.convert and seed the cache via "
-            "ModelFetcher.put(%r, state_dict).", name, f"{name}.pt")
+            "ModelFetcher.put(%r, state_dict), or copy the JAX package's "
+            "cache entry %r (with its .sha256) into the cache.",
+            name, f"{name}.pt", f"{name}.msgpack")
     return init_state_dict(name, seed)
 
 
@@ -182,3 +248,63 @@ def getModelFunction(name: str, featurize: bool = True,
         output_names=["features" if featurize else "predictions"],
         device=device,
         name=f"{name}:{'featurize' if featurize else 'predict'}")
+
+
+# ---------------------------------------------------------------------------
+# prediction decoding (DeepImagePredictor's decodePredictions)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=1)
+def _imagenet_class_names() -> Dict[int, Tuple[str, str]]:
+    """ImageNet class index shared by the 5 ImageNet-shaped zoo models:
+    ``imagenet_class_index.json`` in the fetcher cache, else in the
+    artifacts directory; else synthetic ``class_i`` names (no index is
+    bundled: visibly synthetic labels beat silently wrong ones)."""
+    for directory in (ModelFetcher().cache_dir, ARTIFACTS_DIR):
+        path = os.path.join(directory, "imagenet_class_index.json")
+        if os.path.exists(path):
+            return load_class_index(path)
+    return {i: (f"n{i:08d}", f"class_{i}") for i in range(1000)}
+
+
+def load_class_index(path: str) -> Dict[int, Tuple[str, str]]:
+    """Read a class-index JSON (keras ``imagenet_class_index`` layout:
+    ``{"0": ["id", "name"], ...}``) into ``{idx: (id, name)}``."""
+    with open(path) as f:
+        raw = json.load(f)
+    return {int(k): tuple(v) for k, v in raw.items()}
+
+
+def model_class_index(name: str,
+                      fetcher: Optional[ModelFetcher] = None
+                      ) -> Optional[Dict[int, Tuple[str, str]]]:
+    """A model's own class index, ``<name>.class_index.json`` in the
+    fetcher cache, else beside the committed artifact; None when the
+    model has none (decoding then uses the ImageNet index)."""
+    fileName = f"{name}.class_index.json"
+    fetcher = fetcher or ModelFetcher()
+    for directory in (fetcher.cache_dir, ARTIFACTS_DIR):
+        path = os.path.join(directory, fileName)
+        if os.path.exists(path):
+            return load_class_index(path)
+    return None
+
+
+def decode_predictions(logits: np.ndarray, top: int = 5,
+                       class_index: Optional[Dict[int, Tuple[str, str]]]
+                       = None):
+    """logits/probs [N, C] → per row a list of (class_id, class_name,
+    score), best first. ``class_index`` overrides the default ImageNet
+    index (see :func:`model_class_index`)."""
+    logits = np.asarray(logits)
+    names = class_index if class_index is not None \
+        else _imagenet_class_names()
+    out = []
+    for row in logits:
+        idx = np.argsort(row)[::-1][:top]
+        out.append([
+            (*names.get(int(i), (f"n{int(i):08d}", f"class_{int(i)}")),
+             float(row[i]))
+            for i in idx
+        ])
+    return out

@@ -16,5 +16,6 @@ from sparkdl_tpu_torch.params.shared import (  # noqa: F401
     HasModelFunction,
     HasOutputCol,
     HasOutputMapping,
+    HasOutputMode,
     HasTFHParams,
 )

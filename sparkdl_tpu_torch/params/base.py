@@ -151,6 +151,12 @@ class TypeConverters:
         return int(value)
 
     @staticmethod
+    def toBoolean(value) -> bool:
+        if not isinstance(value, bool):
+            raise TypeError(f"expected bool, got {type(value).__name__}")
+        return value
+
+    @staticmethod
     def toIntPairOrNone(value):
         if value is None:
             return None

@@ -28,6 +28,27 @@ class HasOutputCol(Params):
         return self.getOrDefault("outputCol")
 
 
+def _toOutputMode(value):
+    if value not in ("vector", "image"):
+        raise TypeError(f"outputMode must be 'vector' or 'image', "
+                        f"got {value!r}")
+    return value
+
+
+class HasOutputMode(Params):
+    """'vector' → flat float features column; 'image' → image struct
+    column."""
+
+    outputMode = Param("HasOutputMode", "outputMode",
+                       "output mode: 'vector' or 'image'", _toOutputMode)
+
+    def setOutputMode(self, value: str):
+        return self._set(outputMode=value)
+
+    def getOutputMode(self) -> str:
+        return self.getOrDefault("outputMode")
+
+
 class HasBatchSize(Params):
     """Device batch size of the runner; the tail batch is padded to it,
     so the model always sees one batch shape."""

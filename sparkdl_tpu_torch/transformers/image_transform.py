@@ -17,6 +17,7 @@ from sparkdl_tpu_torch.params import (
     HasInputCol,
     HasModelFunction,
     HasOutputCol,
+    HasOutputMode,
     Transformer,
     keyword_only,
 )
@@ -27,24 +28,29 @@ _PACKED_COL = "__sparkdl_tpu_torch_packed__"
 
 
 class ImageTransformer(Transformer, HasInputCol, HasOutputCol,
-                       HasModelFunction, HasBatchSize, HasDeviceResizeFrom):
+                       HasModelFunction, HasOutputMode, HasBatchSize,
+                       HasDeviceResizeFrom):
     """Applies a single-input ModelFunction (on its own device) to an
-    image struct column; the output column holds each row's output
-    flattened to a float32 vector (the JAX package's
-    ``outputMode="vector"``).
+    image struct column. ``outputMode="vector"`` (the default) gives each
+    row's output flattened to a float32 vector; ``"image"`` turns an
+    [N, H, W, C] output into image structs.
 
     ``deviceResizeFrom=(H, W)``: the images are all H×W; the host packs
     them as they are and the resize to the model's input size runs on
-    the device, by the CUDA resize kernel on the card."""
+    the device, by the CUDA resize kernel on the card. When (H, W) is
+    the model's own input size there is nothing to resize on the device:
+    the host path runs, and resizes any off-size row, as in the JAX
+    package."""
 
     @keyword_only
     def __init__(self, *, inputCol=None, outputCol=None, modelFunction=None,
-                 batchSize=64, deviceResizeFrom=None):
+                 outputMode="vector", batchSize=64, deviceResizeFrom=None):
         super().__init__()
-        self._setDefault(batchSize=64, deviceResizeFrom=None)
+        self._setDefault(outputMode="vector", batchSize=64,
+                         deviceResizeFrom=None)
         self._set(inputCol=inputCol, outputCol=outputCol,
-                  modelFunction=modelFunction, batchSize=batchSize,
-                  deviceResizeFrom=deviceResizeFrom)
+                  modelFunction=modelFunction, outputMode=outputMode,
+                  batchSize=batchSize, deviceResizeFrom=deviceResizeFrom)
         self.metrics = RunnerMetrics()
 
     def _transform(self, dataset):
@@ -55,11 +61,16 @@ class ImageTransformer(Transformer, HasInputCol, HasOutputCol,
             raise ValueError(f"model input must be HWC, got shape {shape}")
         src_hw = self.getOrDefault("deviceResizeFrom")
         if src_hw is not None:
-            mf = tfr_utils.deviceResizeModel(mf, src_hw)
-            shape, in_dtype = mf.input_signature[in_name]
+            wrapped = tfr_utils.deviceResizeModel(mf, src_hw)
+            if wrapped is mf:
+                src_hw = None   # (H, W) is the model's size: host path
+            else:
+                mf = wrapped
+                shape, in_dtype = mf.input_signature[in_name]
         h, w, c = shape
         in_col = self.getInputCol()
         out_col = self.getOutputCol()
+        mode = self.getOutputMode()
         runner = tfr_utils.make_runner(mf, self.getBatchSize(),
                                        metrics=self.metrics)
 
@@ -73,7 +84,7 @@ class ImageTransformer(Transformer, HasInputCol, HasOutputCol,
         def apply(batch):
             out = runner.run({in_name: batch[_PACKED_COL]})[out_name]
             batch = {k: v for k, v in batch.items() if k != _PACKED_COL}
-            return tfr_utils.appendModelOutput(batch, out_col, out)
+            return tfr_utils.appendModelOutput(batch, out_col, out, mode)
 
         return dataset.map_batches(pack, name="packImageBatch") \
             .map_batches(apply, name=f"apply({mf.name})")

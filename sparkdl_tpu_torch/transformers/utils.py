@@ -1,7 +1,7 @@
 """Shared transformer helpers — counterpart of
 ``sparkdl_tpu/transformers/utils.py`` (image packing, model-output
-columns, the payload-to-model reshape guard, runner selection, and the
-device-resize model wrapper)."""
+columns as vectors or image structs, the payload-to-model reshape guard,
+runner selection, and the device-resize model wrapper)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from sparkdl_tpu_torch.data.tensors import Batch, append_tensor_column
+from sparkdl_tpu_torch.data.frame import to_column
+from sparkdl_tpu_torch.data.tensors import (
+    Batch,
+    append_tensor_column,
+    append_unique_column,
+)
 from sparkdl_tpu_torch.image import imageIO
 from sparkdl_tpu_torch.ops.infeed import round_to_uint8
 
@@ -49,11 +54,31 @@ def packImageBatch(column: np.ndarray, height: int, width: int,
     return out
 
 
-def appendModelOutput(batch: Batch, out_col: str,
-                      out: np.ndarray) -> Batch:
-    """Append a model's output as a flat float32 vector column (the JAX
-    package's ``outputMode="vector"``; ``"image"`` is a later slice)."""
+def outputToImageStructs(array: np.ndarray, origins=None) -> np.ndarray:
+    """Float/uint8 [N, H, W, C] model output → image struct column (an
+    object array of the port's struct dicts): a non-uint8 output is
+    rounded (half to even), clipped to 0..255 and cast, as in the JAX
+    package."""
+    array = np.asarray(array)
+    if array.ndim != 4:
+        raise ValueError(
+            f"image output mode needs [N,H,W,C] output, got {array.shape}")
+    if array.dtype != np.uint8:
+        array = np.clip(np.round(array), 0, 255).astype(np.uint8)
+    return to_column([
+        imageIO.imageArrayToStruct(
+            arr, origin=origins[i] if origins is not None else "")
+        for i, arr in enumerate(array)])
+
+
+def appendModelOutput(batch: Batch, out_col: str, out: np.ndarray,
+                      mode: str = "vector", origins=None) -> Batch:
+    """Append a model's output as a flat float32 vector column
+    (``mode="vector"``) or an image struct column (``"image"``)."""
     out = np.asarray(out)
+    if mode == "image":
+        return append_unique_column(batch, out_col,
+                                    outputToImageStructs(out, origins))
     width = int(np.prod(out.shape[1:])) if out.ndim > 1 else 1
     flat = out.reshape(len(out), width).astype(np.float32, copy=False)
     return append_tensor_column(batch, out_col, flat)

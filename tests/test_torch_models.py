@@ -1,6 +1,8 @@
 """The port's models (``sparkdl_tpu_torch.models``) against the JAX
 package's flax models on the CPU, through the weight bridge
-(``models/convert.py``).
+(``models/convert.py``); the port's msgpack reader, committed artifact,
+weight cascade, zoo registry and ``decode_predictions`` against the JAX
+package's.
 
 The JAX side takes its variables from ``jax.eval_shape(module.init, ...)``
 filled from numpy — BatchNorm statistics random, not the seeded init's
@@ -10,13 +12,15 @@ Each comparison states its tolerance:
 * float32: ``TOL_F32`` of the reference's largest magnitude — the two
   sides differ only in the order of float32 sums.
 * bfloat16: two rounding steps (``TOL_BF16_LAYER``) for one layer or
-  block and four (``TOL_BF16_NET``) for the whole InceptionV3, as
-  max|diff| over the reference's largest magnitude. bf16 keeps 8
-  significant bits (a step is 2^-8 ≈ 3.9e-3 relative); where the two
-  sides' fp32 accumulations land on either side of a rounding boundary
-  the result differs by a step, and a deep net carries such flips
-  forward.
+  block and four (``TOL_BF16_NET``) for a whole network (InceptionV3,
+  ResNet50, Xception, VGG16/19), as max|diff| over the reference's
+  largest magnitude. bf16 keeps 8 significant bits (a step is 2^-8 ≈
+  3.9e-3 relative); where the two sides' fp32 accumulations land on
+  either side of a rounding boundary the result differs by a step, and
+  a deep net carries such flips forward.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -26,8 +30,18 @@ import torch
 
 from sparkdl_tpu.models import inception as jax_inception
 from sparkdl_tpu.models import layers as jax_layers
+from sparkdl_tpu.models import resnet as jax_resnet
 from sparkdl_tpu.models import testnet as jax_testnet
-from sparkdl_tpu_torch.models import inception, layers, testnet
+from sparkdl_tpu.models import vgg as jax_vgg
+from sparkdl_tpu.models import xception as jax_xception
+from sparkdl_tpu_torch.models import (
+    inception,
+    layers,
+    resnet,
+    testnet,
+    vgg,
+    xception,
+)
 from sparkdl_tpu_torch.models.convert import flax_to_state_dict
 
 TOL_F32 = 1e-5
@@ -259,3 +273,335 @@ def test_zoo_model_function_matches_jax(testnet_variables, tmp_path,
     assert mf.output_names == [name]
     got = mf({"image": x})[name]
     assert_close(got, ref, TOL_F32)
+
+
+# ---------------------------------------------------------------------------
+# The rest of the zoo: ResNet50, Xception, VGG16/19, and their units
+# ---------------------------------------------------------------------------
+
+# (id, flax layer, port layer, input shape): ResNet's biased convs (its
+# BatchNorm epsilon, a stride-2 1×1, the stem's explicit pads) and
+# Xception's separable unit (with and without its ReLU, an odd size)
+UNIT_CASES = [
+    ("biased_3x3", lambda d: jax_layers.ConvBN(
+        8, bn_epsilon=1.001e-5, use_bias=True, dtype=d),
+     lambda c, d: layers.ConvBN(c, 8, bn_epsilon=1.001e-5, use_bias=True,
+                                dtype=d), (2, 7, 7, 5)),
+    ("biased_1x1_s2_no_relu", lambda d: jax_layers.ConvBN(
+        6, (1, 1), strides=(2, 2), relu=False, bn_epsilon=1.001e-5,
+        use_bias=True, dtype=d),
+     lambda c, d: layers.ConvBN(c, 6, (1, 1), strides=(2, 2), relu=False,
+                                bn_epsilon=1.001e-5, use_bias=True,
+                                dtype=d), (1, 9, 8, 4)),
+    ("biased_7x7_s2_pads", lambda d: jax_layers.ConvBN(
+        8, (7, 7), strides=(2, 2), padding=[(3, 3), (3, 3)],
+        bn_epsilon=1.001e-5, use_bias=True, dtype=d),
+     lambda c, d: layers.ConvBN(c, 8, (7, 7), strides=(2, 2),
+                                padding=[(3, 3), (3, 3)],
+                                bn_epsilon=1.001e-5, use_bias=True,
+                                dtype=d), (1, 16, 16, 3)),
+    ("separable", lambda d: jax_layers.SeparableConvBN(12, dtype=d),
+     lambda c, d: layers.SeparableConvBN(c, 12, dtype=d), (2, 7, 7, 8)),
+    ("separable_no_relu_odd", lambda d: jax_layers.SeparableConvBN(
+        5, relu=False, dtype=d),
+     lambda c, d: layers.SeparableConvBN(c, 5, relu=False, dtype=d),
+     (1, 9, 6, 6)),
+]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", UNIT_CASES, ids=[c[0] for c in UNIT_CASES])
+def test_biased_and_separable_units(case, dtype):
+    _, make_jax, make_torch, shape = case
+    jdt, tdt = DTYPES[dtype]
+    got, ref = run_pair(make_jax(jdt), make_torch(shape[-1], tdt),
+                        _x(shape), dtype)
+    assert_close(got, ref, TOLS[dtype])
+
+
+def test_bridge_depthwise_and_head_names():
+    """A depthwise kernel HWIO ``(kh, kw, 1, C)`` lands as ``(C, 1, kh,
+    kw)`` under ``depthwise``, the pointwise under ``pointwise``; a single
+    ``Dense_0`` is ``fc`` while VGG's ``Conv_k``/``Dense_k`` keep their
+    names."""
+    rng = np.random.default_rng(12)
+    dw = rng.normal(size=(3, 3, 1, 6)).astype(np.float32)
+    pw = rng.normal(size=(1, 1, 6, 4)).astype(np.float32)
+    ones = np.ones(4, np.float32)
+    variables = {
+        "params": {
+            "SeparableConvBN_0": {"Conv_0": {"kernel": dw},
+                                  "Conv_1": {"kernel": pw},
+                                  "BatchNorm_0": {"scale": ones,
+                                                  "bias": ones}},
+            "Conv_0": {"kernel": pw, "bias": ones},
+            "Dense_0": {"kernel": np.zeros((4, 3), np.float32),
+                        "bias": np.zeros(3, np.float32)},
+            "Dense_1": {"kernel": np.zeros((3, 2), np.float32),
+                        "bias": np.zeros(2, np.float32)},
+            "Block_0": {"Dense_0": {"kernel": np.zeros((4, 3), np.float32),
+                                    "bias": np.zeros(3, np.float32)}},
+        },
+        "batch_stats": {"SeparableConvBN_0": {"BatchNorm_0": {
+            "mean": ones, "var": ones}}},
+    }
+    sd = flax_to_state_dict(variables)
+    assert sorted(sd) == sorted([
+        "SeparableConvBN_0.depthwise.weight",
+        "SeparableConvBN_0.pointwise.weight",
+        "SeparableConvBN_0.bn.weight", "SeparableConvBN_0.bn.bias",
+        "SeparableConvBN_0.bn.running_mean",
+        "SeparableConvBN_0.bn.running_var",
+        "Conv_0.weight", "Conv_0.bias", "Dense_0.weight", "Dense_0.bias",
+        "Dense_1.weight", "Dense_1.bias", "Block_0.fc.weight",
+        "Block_0.fc.bias"])
+    got = sd["SeparableConvBN_0.depthwise.weight"].numpy()
+    assert got.shape == (6, 1, 3, 3)
+    for c in range(6):
+        np.testing.assert_array_equal(got[c, 0], dw[:, :, 0, c])
+    assert tuple(sd["SeparableConvBN_0.pointwise.weight"].shape) == \
+        (4, 6, 1, 1)
+    assert tuple(sd["Dense_0.weight"].shape) == (3, 4)
+    # a depthwise conv with groups=C takes the bridged weight as it is
+    sep = layers.SeparableConvBN(6, 4, dtype=torch.float32)
+    sep.load_state_dict({k.split(".", 1)[1]: v for k, v in sd.items()
+                         if k.startswith("SeparableConvBN_0.")},
+                        strict=True)
+
+
+def _flax_blob_variables(variables):
+    """``variables`` through flax's serializer and the port's reader, with
+    the reader held to the msgpack library (flax's own restore) on the
+    same blob; returns the port's tree and the blob."""
+    from flax import serialization
+
+    from sparkdl_tpu_torch.models import msgpack
+    blob = serialization.to_bytes(variables)
+    got = msgpack.loads(blob)
+    ref = serialization.msgpack_restore(blob)
+
+    def same(a, b):
+        if isinstance(b, dict):
+            assert isinstance(a, dict) and sorted(a) == sorted(b)
+            for k in b:
+                same(a[k], b[k])
+        else:
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+    same(got, ref)
+    return got, blob
+
+
+# (name, flax model, port model, input size): each at its smallest size
+# that keeps what could go wrong visible — VGG at 64×64 ends on a 2×2×512
+# map, so a flatten in the wrong order shows (at 32×32 the map is 1×1);
+# ResNet50's final map is 2×2, so its global pool averages
+NET_CASES = [
+    ("ResNet50", jax_resnet.ResNet50, resnet.ResNet50, 64),
+    ("Xception", jax_xception.Xception, xception.Xception, 71),
+    ("VGG16", jax_vgg.VGG16,
+     lambda: vgg.VGG16(input_size=(64, 64)), 64),
+    ("VGG19", jax_vgg.VGG19,
+     lambda: vgg.VGG19(input_size=(64, 64)), 64),
+]
+
+
+@pytest.mark.parametrize("case", NET_CASES, ids=[c[0] for c in NET_CASES])
+def test_zoo_whole_net_bf16(case):
+    """Each new zoo network whole, batch 1, in the model's own bf16,
+    features and logits, against the flax model un-jitted on the same
+    random variables (``TOL_BF16_NET``, as InceptionV3). VGG's variables
+    go through ``flax.serialization.to_bytes`` and the port's msgpack
+    reader (its 32 MB ``Dense_0`` kernel takes msgpack's ext32 route);
+    the others through the bridge directly."""
+    name, make_jax, make_torch, size = case
+    x = np.random.default_rng(4).uniform(-1, 1, (1, size, size, 3)).astype(
+        np.float32)
+    jm = make_jax()
+    variables = random_variables(jm, jnp.asarray(x))
+    ref = np.asarray(jm.apply(variables, jnp.asarray(x),
+                              features_only=True))
+    ref_logits = np.asarray(jm.apply(variables, jnp.asarray(x)))
+    if name.startswith("VGG"):
+        variables, _ = _flax_blob_variables(variables)
+        # an extension payload above 64 KiB is written as ext32
+        assert variables["params"]["Dense_0"]["kernel"].nbytes > 0xffff
+    tm = make_torch().eval()
+    tm.load_state_dict(flax_to_state_dict(variables), strict=True)
+    with torch.inference_mode():
+        got = tm(nchw(x, torch.float32), features_only=True).numpy()
+        got_logits = tm(nchw(x, torch.float32)).numpy()
+    assert got.dtype == np.float32 and got.shape == ref.shape
+    assert got.shape == (1, 4096 if name.startswith("VGG") else 2048)
+    assert_close(got, ref, TOL_BF16_NET)
+    assert got_logits.shape == (1, 1000)
+    assert_close(got_logits, ref_logits, TOL_BF16_NET)
+
+
+# ---------------------------------------------------------------------------
+# Weights: the msgpack reader, the committed artifact, the cascade
+# ---------------------------------------------------------------------------
+
+ARTIFACTS = ("TestNet.msgpack", "TestNet.msgpack.sha256",
+             "TestNet.class_index.json", "TestNet.provenance.json")
+
+
+@pytest.mark.parametrize("fileName", ARTIFACTS)
+def test_artifact_copies_are_byte_equal(fileName):
+    from sparkdl_tpu.models import zoo as jax_zoo
+    from sparkdl_tpu_torch.models import zoo
+    with open(os.path.join(jax_zoo.ARTIFACTS_DIR, fileName), "rb") as f:
+        ref = f.read()
+    with open(os.path.join(zoo.ARTIFACTS_DIR, fileName), "rb") as f:
+        assert f.read() == ref
+
+
+def test_msgpack_reader_on_committed_blob(testnet_variables):
+    """The committed blob through the port's reader: the msgpack
+    library's tree array for array, and, through the bridge, the JAX
+    package's loaded TestNet variables."""
+    from sparkdl_tpu_torch.models import zoo
+    with open(os.path.join(zoo.ARTIFACTS_DIR, "TestNet.msgpack"),
+              "rb") as f:
+        blob = f.read()
+    assert blob.startswith(b"\x82\xa6params")
+    got, _ = _flax_blob_variables(testnet_variables)
+    from sparkdl_tpu_torch.models import msgpack
+    tree = msgpack.loads(blob)
+    sd, ref = flax_to_state_dict(tree), flax_to_state_dict(got)
+    assert sorted(sd) == sorted(ref)
+    for k in ref:
+        torch.testing.assert_close(sd[k], ref[k], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("blob,where", [
+    (b"\xc1", "0xc1 at offset 0"),
+    (b"\x81\xa1a\xc3", "0xc3 at offset 3"),   # flax's chunked form
+    (b"\x81\xa1a\xc7\x03\x02abc", "extension type 2 at offset 3"),
+    (b"\x81\xa1a\xc7\x10\x01\x93\x91\x01", "needs 16 bytes"),
+    (b"\x91\x01\x02", "1 bytes left over"),
+    (b"\xd5\x01\x93\x90\xa7float32\xc4\x00", "not (shape, dtype, bytes)"),
+])
+def test_msgpack_reader_raises_with_the_offset(blob, where):
+    from sparkdl_tpu_torch.models import msgpack
+    with pytest.raises(ValueError) as err:
+        msgpack.loads(blob)
+    assert where in str(err.value)
+
+
+def test_weights_cascade_order(tmp_path, testnet_variables):
+    """The cache's ``.pt``, then its ``.msgpack`` (a JAX package cache
+    entry, hash-checked), then the committed artifact, then the seeded
+    init — what ``weights_provenance`` reports is what loads."""
+    from sparkdl_tpu.models.fetcher import ModelFetcher as JaxFetcher
+    from sparkdl_tpu_torch.models import zoo
+    from sparkdl_tpu_torch.models.fetcher import ModelFetcher
+    fetcher = ModelFetcher(str(tmp_path))
+    committed = zoo.load_state_dict("TestNet", fetcher)
+    assert zoo.weights_provenance("TestNet", fetcher) == "committed"
+    ref = flax_to_state_dict(testnet_variables)
+    for k in ref:
+        torch.testing.assert_close(committed[k], ref[k], rtol=0, atol=0)
+    assert zoo.weights_provenance("VGG19", fetcher) == "random"
+
+    # a JAX cache entry: other weights, written by the JAX fetcher
+    other = jax.tree_util.tree_map(lambda v: np.asarray(v) * 2,
+                                   testnet_variables)
+    JaxFetcher(str(tmp_path)).put("TestNet.msgpack", other)
+    assert zoo.weights_provenance("TestNet", fetcher) == "cache"
+    cached = zoo.load_state_dict("TestNet", fetcher)
+    for k in ref:
+        torch.testing.assert_close(cached[k], ref[k] * 2, rtol=0, atol=0)
+
+    fetcher.put("TestNet.pt", {k: v * 3 for k, v in ref.items()})
+    assert zoo.weights_provenance("TestNet", fetcher) == "cache"
+    pt = zoo.load_state_dict("TestNet", fetcher)
+    for k in ref:
+        torch.testing.assert_close(pt[k], ref[k] * 3, rtol=0, atol=0)
+
+    # a corrupt msgpack entry fails its hash check loudly
+    os.remove(tmp_path / "TestNet.pt")
+    with open(tmp_path / "TestNet.msgpack", "r+b") as f:
+        f.seek(100)
+        f.write(b"\x00")
+    with pytest.raises(IOError, match="hash mismatch"):
+        zoo.load_state_dict("TestNet", fetcher)
+
+
+def test_committed_artifact_is_hash_checked(tmp_path, monkeypatch):
+    """The committed blob loads through its sha256 sidecar: a flipped
+    byte in a copy of the artifacts directory raises."""
+    import shutil
+
+    from sparkdl_tpu_torch.models import zoo
+    from sparkdl_tpu_torch.models.fetcher import ModelFetcher
+    copy = tmp_path / "artifacts"
+    shutil.copytree(zoo.ARTIFACTS_DIR, copy)
+    monkeypatch.setattr(zoo, "ARTIFACTS_DIR", str(copy))
+    empty = ModelFetcher(str(tmp_path / "cache"))
+    assert zoo.weights_provenance("TestNet", empty) == "committed"
+    zoo.load_state_dict("TestNet", empty)
+    with open(copy / "TestNet.msgpack", "r+b") as f:
+        f.seek(200)
+        byte = f.read(1)
+        f.seek(200)
+        f.write(bytes([byte[0] ^ 1]))
+    with pytest.raises(IOError, match="hash mismatch"):
+        zoo.load_state_dict("TestNet", empty)
+
+
+@pytest.mark.parametrize("top", [1, 3, 5])
+@pytest.mark.parametrize("index", ["imagenet", "testnet"])
+def test_decode_predictions_matches_jax(top, index):
+    """The same array through both packages' ``decode_predictions``, with
+    the synthetic ImageNet names and with TestNet's class index; ties
+    included (equal scores keep the same order)."""
+    from sparkdl_tpu.models import zoo as jax_zoo
+    from sparkdl_tpu_torch.models import zoo
+    n_classes = 1000 if index == "imagenet" else 10
+    rng = np.random.default_rng(13)
+    probs = rng.random((6, n_classes)).astype(np.float32)
+    probs[2, 3] = probs[2, 7] = probs[2].max() + 0.5   # a tie at the top
+    jax_index = torch_index = None
+    if index == "testnet":
+        jax_index = jax_zoo.model_class_index("TestNet")
+        torch_index = zoo.model_class_index("TestNet")
+        assert torch_index == jax_index and torch_index[3] == (
+            "proto_3", "prototype_3")
+    ref = jax_zoo.decode_predictions(probs, top=top, class_index=jax_index)
+    got = zoo.decode_predictions(probs, top=top, class_index=torch_index)
+    assert got == ref
+    assert all(len(row) == top for row in got)
+
+
+def test_synthetic_testnet_dataset_matches_jax():
+    """The port's copy of TestNet's dataset generator gives the JAX
+    package's images and labels, byte for byte."""
+    from sparkdl_tpu.models.testnet import synthetic_testnet_dataset as ref
+    from sparkdl_tpu_torch.models.testnet import synthetic_testnet_dataset
+    for args in ((16, 1), (8, 0, 10.0, 7)):
+        (x, y), (rx, ry) = synthetic_testnet_dataset(*args), ref(*args)
+        assert x.dtype == rx.dtype == np.uint8 and y.dtype == ry.dtype
+        np.testing.assert_array_equal(x, rx)
+        np.testing.assert_array_equal(y, ry)
+
+
+@pytest.mark.parametrize("name", ["InceptionV3", "Xception", "ResNet50",
+                                  "VGG16", "VGG19", "TestNet"])
+def test_zoo_registry_and_preprocess_match_jax(name):
+    """Every model of the JAX zoo is in the port's, with the same input
+    size, feature width and class count, and a preprocess that gives the
+    JAX package's float32 values exactly (caffe's RGB → BGR flip on the
+    NCHW channel axis, then the BGR means)."""
+    from sparkdl_tpu.models import zoo as jax_zoo
+    from sparkdl_tpu_torch.models import zoo
+    assert zoo.SUPPORTED_MODELS == jax_zoo.SUPPORTED_MODELS
+    spec, ref_spec = (zoo.getKerasApplicationModel(name),
+                      jax_zoo.getKerasApplicationModel(name))
+    assert (spec.input_size, spec.feature_dim, spec.num_classes) == (
+        ref_spec.input_size, ref_spec.feature_dim, ref_spec.num_classes)
+    x = np.random.default_rng(14).integers(0, 256, (2, 5, 4, 3),
+                                           dtype=np.uint8)
+    ref = np.asarray(ref_spec.preprocess(jnp.asarray(x)))
+    got = spec.preprocess(torch.from_numpy(x).permute(0, 3, 1, 2))
+    np.testing.assert_array_equal(nhwc(got), ref)

@@ -100,10 +100,12 @@ def test_wrapper_rejects_other_dtypes_and_ranks():
 
 
 # The CUDA kernel's launch plan (``resize_plan``): band weights, tiling and
-# shared memory, checked on the CPU. The geometries: the main path, an
-# upscale, the identity, the small cases, and phone photos to 299.
+# shared memory, checked on the CPU. The geometries: the main path (to
+# InceptionV3's 299 and to ResNet50's and VGG's 224), an upscale, the
+# identity, the small cases, and phone photos to 299.
 PLAN_GEOMETRIES = [
-    ((512, 512), (299, 299)), ((150, 150), (299, 299)),
+    ((512, 512), (299, 299)), ((512, 512), (224, 224)),
+    ((150, 150), (299, 299)),
     ((299, 299), (299, 299)), ((40, 40), (24, 24)), ((56, 56), (32, 32)),
     ((3024, 3024), (299, 299)), ((4032, 4032), (299, 299)),
     ((3024, 4032), (299, 299)),
@@ -271,11 +273,13 @@ def _run_plan(x, plan, out_hw, scale, offset, grid):
 
 
 # (input shape, output hw, scale, offset, input dtype, plan options): the
-# chip smoke's small cases and its two tall images, whose steep vertical
+# main path's 512→224 (ResNet50, VGG), the chip smoke's small cases and
+# its two tall images, whose steep vertical
 # downscales shorten the bands (to 2 rows within the budget, to 1 in up to
 # 227 KB), and two downscales with a budget so small that the plan tiles
 # columns (the first also shortens its bands)
 SCHEDULE_CASES = [
+    ((1, 512, 512, 3), (224, 224), 1.0, 0.0, np.uint8, {}),
     ((3, 40, 56, 3), (24, 32), 1 / 127.5, -1.0, np.uint8, {}),
     ((3, 41, 57, 1), (24, 33), 1.0, 0.0, np.uint8, {}),
     ((1, 30, 30, 1), (61, 61), 1.0, 0.0, np.uint8, {}),

@@ -133,9 +133,9 @@ def test_device_resize_rounds_like_jax():
 
 
 def test_import_closure_and_chip_smoke_without_cuda():
-    """Importing the port and every submodule, chip_smoke.py and
-    k2_phases.py, loads none of jax, flax, sparkdl_tpu, pyarrow, PIL or
-    msgpack; and without CUDA chip_smoke.py and k2_phases.py exit non-zero
+    """Importing the port and every submodule (the zoo's models and the
+    msgpack reader among them), chip_smoke.py and k2_phases.py, loads none
+    of jax, flax, sparkdl_tpu, pyarrow, PIL or msgpack; and without CUDA chip_smoke.py and k2_phases.py exit non-zero
     and print nothing on stdout."""
     code = (
         "import contextlib, importlib, io, json, pkgutil, runpy, sys\n"
@@ -144,7 +144,7 @@ def test_import_closure_and_chip_smoke_without_cuda():
         "    sparkdl_tpu_torch.__path__, 'sparkdl_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "exports = sorted(n for n in ('readImagesPacked', 'TensorTransformer',\n"
-        "                             'DataFrame')\n"
+        "                             'DataFrame', 'DeepImagePredictor')\n"
         "                 if callable(getattr(sparkdl_tpu_torch, n)))\n"
         "smoke = runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
         "sys.path.insert(0, '.')\n"
@@ -166,10 +166,11 @@ def test_import_closure_and_chip_smoke_without_cuda():
     assert proc.returncode == 0, proc.stderr
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     for mod in ("transformers.named_image", "transformers.tensor_transform",
-                "native", "image.imageIO"):
+                "native", "image.imageIO", "models.msgpack", "models.resnet",
+                "models.xception", "models.vgg", "models.zoo"):
         assert f"sparkdl_tpu_torch.{mod}" in result["mods"]
-    assert result["exports"] == ["DataFrame", "TensorTransformer",
-                                 "readImagesPacked"]
+    assert result["exports"] == ["DataFrame", "DeepImagePredictor",
+                                 "TensorTransformer", "readImagesPacked"]
     assert result["loaded"] == []
     assert result["rc"] != 0 and result["rc_phases"] != 0
     assert result["smoke_stdout"] == ""
@@ -493,3 +494,218 @@ def test_device_resize_model_refuses_what_jax_refuses():
         with pytest.raises(ValueError) as err:
             deviceResizeModel(model, **kw)
         assert str(err.value) == str(jax_err.value)
+
+
+# ---------------------------------------------------------------------------
+# DeepImagePredictor, outputMode="image", deviceResizeFrom at the model's
+# size — each against the JAX package on the same rows
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def empty_caches(tmp_path, monkeypatch):
+    """Both packages' weight caches empty: each serves its committed
+    TestNet (the port reads it with its own msgpack reader)."""
+    monkeypatch.setenv("SPARKDL_TPU_MODEL_CACHE", str(tmp_path / "jax"))
+    monkeypatch.setenv("SPARKDL_TPU_TORCH_MODEL_CACHE",
+                       str(tmp_path / "torch"))
+
+
+def _frames(structs, num_partitions=2):
+    """The same image structs as a frame of each package: (JAX, port)."""
+    import pyarrow as pa
+    from sparkdl_tpu.data.frame import DataFrame as JaxDataFrame
+    from sparkdl_tpu.image import imageIO as jax_io
+    from sparkdl_tpu_torch import DataFrame
+    table = pa.Table.from_batches([jax_io.structsToBatch(structs)])
+    return (JaxDataFrame.from_table(table, num_partitions),
+            DataFrame.from_pylist([{"image": s} for s in structs],
+                                  num_partitions))
+
+
+def _jax_tensor(table, name):
+    from sparkdl_tpu.data.tensors import arrow_to_tensor
+    idx = table.schema.get_field_index(name)
+    return arrow_to_tensor(table.column(idx), table.schema.field(idx))
+
+
+def test_device_resize_at_model_size_resizes_off_size_rows_on_host(
+        empty_caches):
+    """``deviceResizeFrom`` equal to the model's input size leaves nothing
+    to resize on the device: the host path runs and resizes an off-size
+    row, as in the JAX package (the port raised ValueError on the 40×40
+    row before)."""
+    import sparkdl_tpu
+    import sparkdl_tpu_torch
+    from sparkdl_tpu_torch.image.imageIO import imageArrayToStruct
+    rng = np.random.default_rng(21)
+    structs = [imageArrayToStruct(rng.integers(0, 256, shape,
+                                               dtype=np.uint8), origin=o)
+               for shape, o in (((40, 40, 3), "a"), ((32, 32, 3), "b"))]
+    jax_df, df = _frames(structs, 1)
+    kw = dict(inputCol="image", outputCol="f", modelName="TestNet",
+              deviceResizeFrom=(32, 32))
+    ref = _jax_tensor(sparkdl_tpu.DeepImageFeaturizer(**kw).transform(
+        jax_df).collect(), "f")
+    got = sparkdl_tpu_torch.DeepImageFeaturizer(device="cpu", **kw) \
+        .transform(df).collect()["f"]
+    assert got.shape == ref.shape == (2, 16)
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=TOL_FEATURES * np.abs(ref).max())
+
+
+def _testnet_structs(n, seed):
+    from sparkdl_tpu_torch.image.imageIO import imageArrayToStruct
+    from sparkdl_tpu_torch.models.testnet import synthetic_testnet_dataset
+    x, y = synthetic_testnet_dataset(n, seed=seed)
+    return [imageArrayToStruct(a, origin=f"r{i}")
+            for i, a in enumerate(x)], y
+
+
+@pytest.mark.parametrize("decode,top,index_file", [
+    (False, 5, False), (True, 1, False), (True, 3, False), (True, 3, True)],
+    ids=["raw", "top1", "top3", "top3_classIndexFile"])
+def test_predictor_matches_jax_on_committed_testnet(empty_caches, tmp_path,
+                                                    decode, top,
+                                                    index_file):
+    """``DeepImagePredictor`` on the committed TestNet (read by the port's
+    msgpack reader) against the JAX one on the same rows: raw softmax
+    scores within ``TOL_FEATURES`` of the largest, or decoded rows with
+    the same class ids in the same order, scores as ``np.float32``
+    within the same tolerance; with ``classIndexFile`` the names come
+    from that file. The decoded column replaces the raw one in both."""
+    import sparkdl_tpu
+    import sparkdl_tpu_torch
+    from sparkdl_tpu.models import zoo as jax_zoo
+    from sparkdl_tpu_torch.models import zoo
+    assert zoo.weights_provenance("TestNet") == "committed"
+    assert jax_zoo.weights_provenance("TestNet") == "committed"
+    structs, labels = _testnet_structs(12, seed=5)
+    jax_df, df = _frames(structs, 3)
+    kw = dict(inputCol="image", outputCol="p", modelName="TestNet",
+              decodePredictions=decode, topK=top, batchSize=4)
+    if index_file:
+        path = tmp_path / "index.json"
+        path.write_text(json.dumps({str(i): [f"id{i}", f"name {i}"]
+                                    for i in range(10)}))
+        kw["classIndexFile"] = str(path)
+    table = sparkdl_tpu.DeepImagePredictor(**kw).transform(jax_df).collect()
+    out = sparkdl_tpu_torch.DeepImagePredictor(device="cpu", **kw) \
+        .transform(df).collect()
+    assert list(out) == table.column_names == ["image", "p"]
+    if not decode:
+        ref = _jax_tensor(table, "p")
+        assert out["p"].shape == ref.shape == (12, 10)
+        np.testing.assert_allclose(out["p"], ref, rtol=0,
+                                   atol=TOL_FEATURES * np.abs(ref).max())
+        assert (out["p"].argmax(1) == labels).mean() >= 0.95
+        return
+    ref_rows = table.column("p").to_pylist()
+    assert len(out["p"]) == len(ref_rows) == 12
+    for got, ref in zip(out["p"], ref_rows):
+        assert [e["class"] for e in got] == [e["class"] for e in ref]
+        assert [e["description"] for e in got] == \
+            [e["description"] for e in ref]
+        assert all(type(e["score"]) is np.float32 for e in got)
+        np.testing.assert_allclose([e["score"] for e in got],
+                                   [e["score"] for e in ref], rtol=0,
+                                   atol=TOL_FEATURES)
+    for row in out["p"]:
+        for e in row:
+            i = int(e["class"].lstrip("id").split("_")[-1])
+            assert e["description"] == (f"name {i}" if index_file
+                                        else f"prototype_{i}")
+    top1 = [int(row[0]["class"].lstrip("id").split("_")[-1])
+            for row in out["p"]]
+    assert (np.array(top1) == labels).mean() >= 0.95
+
+
+def test_predictor_with_device_resize_matches_jax(png_dir, empty_caches):
+    """``DeepImagePredictor(deviceResizeFrom=...)`` in both packages on
+    the same files: the raw scores as the featurizer's features are
+    compared (rows where the two resizes round a tie pixel apart within
+    ``TOL_FEATURES_TIE``), and the decoded top-3 rows hold the class ids
+    of the port's own raw scores, ranked by ``decode_predictions``."""
+    import sparkdl_tpu
+    import sparkdl_tpu_torch
+    from sparkdl_tpu_torch.models import zoo
+    kw = dict(inputCol="image", outputCol="p", modelName="TestNet",
+              deviceResizeFrom=(40, 56), batchSize=4)
+    table = sparkdl_tpu.DeepImagePredictor(**kw).transform(
+        sparkdl_tpu.readImages(png_dir, numPartitions=3)).collect()
+    ref = _jax_tensor(table, "p")
+    df = sparkdl_tpu_torch.readImages(png_dir, numPartitions=3)
+    raw = sparkdl_tpu_torch.DeepImagePredictor(device="cpu", **kw) \
+        .transform(df).collect()["p"]
+    from PIL import Image
+    paths = table.column("filePath").to_pylist()
+    x = np.stack([np.asarray(Image.open(p)) for p in paths])
+    got_u8, ref_u8, _ = resize_round_both(x, (32, 32))
+    tie_rows = (got_u8 != ref_u8).any(axis=(1, 2, 3))
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(raw[~tie_rows], ref[~tie_rows], rtol=0,
+                               atol=TOL_FEATURES * scale)
+    np.testing.assert_allclose(raw, ref, rtol=0,
+                               atol=TOL_FEATURES_TIE * scale)
+    decoded = sparkdl_tpu_torch.DeepImagePredictor(
+        device="cpu", decodePredictions=True, topK=3, **kw).transform(
+        df).collect()["p"]
+    want = zoo.decode_predictions(raw, top=3,
+                                  class_index=zoo.model_class_index(
+                                      "TestNet"))
+    assert [[e["class"] for e in row] for row in decoded] == \
+        [[c for c, _, _ in row] for row in want]
+
+
+class _Affine(torch.nn.Module):
+    def forward(self, inputs):
+        return {"y": inputs["img"].to(torch.float32) * 1.5 - 20.25}
+
+
+def test_image_output_mode_matches_jax():
+    """``outputMode="image"``: a float model output is rounded (half to
+    even), clipped and cast to uint8 image structs, as the JAX package's
+    ``outputToImageStructs`` does; here through ``ImageTransformer`` in
+    both packages (x * 1.5 - 20.25 is exact in float32, so the structs
+    are byte-equal), and the helper alone on values at .5, below 0 and
+    above 255, and on uint8 input."""
+    import jax.numpy as jnp
+    from sparkdl_tpu.graph.function import ModelFunction as JaxModelFunction
+    from sparkdl_tpu.transformers.image_transform import (
+        ImageTransformer as JaxImageTransformer,
+    )
+    from sparkdl_tpu.transformers.utils import (
+        outputToImageStructs as jax_to_structs,
+    )
+    from sparkdl_tpu_torch import ImageTransformer
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.image.imageIO import imageArrayToStruct
+    from sparkdl_tpu_torch.transformers.utils import outputToImageStructs
+    rng = np.random.default_rng(22)
+    structs = [imageArrayToStruct(rng.integers(0, 256, (6, 5, 3),
+                                               dtype=np.uint8))
+               for _ in range(5)]
+    jax_df, df = _frames(structs)
+    sig = {"img": ((6, 5, 3), np.uint8)}
+    jax_mf = JaxModelFunction(
+        lambda p, x: {"y": x["img"].astype(jnp.float32) * 1.5 - 20.25}, {},
+        input_signature=sig, output_names=["y"])
+    mf = ModelFunction(_Affine(), sig, ["y"], device="cpu")
+    kw = dict(inputCol="image", outputCol="out", outputMode="image",
+              batchSize=2)
+    ref = JaxImageTransformer(modelFunction=jax_mf, **kw).transform(
+        jax_df).collect().column("out").to_pylist()
+    got = ImageTransformer(modelFunction=mf, **kw).transform(df).collect()
+    assert list(got["out"]) == ref
+    assert ref[0]["height"] == 6 and ref[0]["nChannels"] == 3
+
+    arr = np.array([-3.0, -0.5, 0.5, 1.5, 2.5, 254.5, 255.49, 300.0],
+                   np.float32).reshape(2, 2, 2, 1)
+    for a, origins in ((arr, None), (arr.astype(np.float64), ["x", "y"]),
+                       (rng.integers(0, 256, (2, 3, 4, 3),
+                                     dtype=np.uint8), None)):
+        assert list(outputToImageStructs(a, origins)) == \
+            jax_to_structs(a, origins).to_pylist()
+    with pytest.raises(ValueError, match="needs \\[N,H,W,C\\]"):
+        outputToImageStructs(arr[:, 0])
+    with pytest.raises(TypeError, match="outputMode"):
+        ImageTransformer(modelFunction=mf, outputMode="vectors")
