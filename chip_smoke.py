@@ -91,12 +91,41 @@ Phases, one JSON line each on stdout:
                    rows through the featurizer: the engine re-chunks
                    them, so the runner reports 8 batches, not 32, and the
                    features equal the 8×64 frame's bit for bit.
-12. ``trained_predict`` — ``DeepImagePredictor(modelName="TestNet",
+12. ``transfer`` — the transfer-learning flow on the card:
+                   ``Pipeline([DeepImageFeaturizer("InceptionV3",
+                   deviceResizeFrom=(512, 512)), LogisticRegression(
+                   maxIter=100, regParam=1e-3)])`` fitted over the same
+                   frame with labels ``i % 10``, then transform and
+                   ``ClassificationEvaluator`` (the counted run: K1 8
+                   times in the fit's collect, once in the runner's
+                   output-shape probe, 8 in the transform);
+                   probabilities finite and summing to 1; the same fit
+                   on the CPU over the collected features within the
+                   stated bounds; the fitted ``PipelineModel`` saved,
+                   reloaded with ``load_model`` and transformed to the
+                   same bits. The fit's seconds split into featurize and
+                   LR fit, and the LR's ms a step.
+13. ``trained_predict`` — ``DeepImagePredictor(modelName="TestNet",
                    decodePredictions=True, topK=1)`` with the committed,
                    trained weights (read by the port's msgpack reader)
                    over the held-out set its provenance names: accuracy
                    at least 0.95, each decoded name the raw scores' best.
-13. ``kernels``  — each kernel's launches on its paths and pass/fail.
+14. ``transfer_trained`` — ``Pipeline([DeepImageFeaturizer("TestNet"),
+                   LogisticRegression()])`` on the TestNet's 4,096 train
+                   images, then ``CrossValidator`` (3 folds) and
+                   ``TrainValidationSplit`` over ``regParam`` {0, 1e-2} ×
+                   ``maxIter`` {50, 100} on the cached featurized train
+                   split: finite metrics, and held-out accuracy at least
+                   0.95 after the fit and for each best model.
+15. ``logreg_scale`` — ``LogisticRegression`` alone on 262,144 × 2,048
+                   seeded fp32 features, 10 classes, 64 partitions:
+                   full-batch for 100 steps (ms a step beside its bound:
+                   the table read twice a step over HBM bandwidth), the
+                   step alone by CUDA events, one minibatch and one
+                   streaming epoch at batch 4096, the default budget's
+                   switch to streaming (with its warning), and the card
+                   against the CPU at 8,192 rows, 20 steps.
+16. ``kernels``  — each kernel's launches on its paths and pass/fail.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -173,6 +202,35 @@ RING_DEPTHS = (2, 8)
 SMALL_PARTITIONS = 32
 # the zoo models timed alone at batch 64 in runner_split
 SPLIT_MODELS = ("InceptionV3",) + ZOO_MODELS
+# the transfer-learning phases: logistic regression on 10 classes
+LR_CLASSES = 10
+LR_ITERS = 100
+LR_REG = 1e-3
+# logreg_scale: a quarter of the north-star table's 1,048,576 rows of
+# InceptionV3's width, in 64 partitions; minibatch and streaming fits at
+# batch 4096; the card against the CPU on the first 8,192 rows
+LR_ROWS = 262_144
+LR_PARTITIONS = 64
+LR_BATCH = 4096
+LR_CHECK_ROWS = 8192
+LR_CHECK_ITERS = 20
+# transfer_trained: the grid tuned over the TestNet features
+TUNE_REG = (0.0, 1e-2)
+TUNE_ITERS = (50, 100)
+TUNE_FOLDS = 3
+TUNE_TRAIN_RATIO = 0.75
+# a fit on the card against the same fit on the CPU, from the same
+# initial bits on the same features: the Adam updates are the same
+# float32 arithmetic and differ only in the order of the sums inside the
+# products (cuBLAS's against the CPU's). Reordering a 2,048-term fp32 dot
+# product moves it by about sqrt(2048) half-ulps, ~3e-6 relative; a CPU
+# replay of these fits in other orders (columns or rows permuted, or in
+# float64; on features shaped like this script's: random InceptionV3
+# features and the logreg_scale table) moved the objective history by at
+# most 6e-7 relative and the probabilities by at most 9e-7. The bounds
+# keep 10x and more above that, and are the JAX-parity tests' own.
+LR_BOUND_HISTORY_REL = 1e-4
+LR_BOUND_PROB = 1e-5
 
 
 def emit(phase, **fields):
@@ -1286,6 +1344,313 @@ def trained_predict(torch, np, smi_line):
                              f"{TESTNET_MIN_ACCURACY}")
 
 
+def lr_agreement(np, card, cpu, frame):
+    """A fit on the card against the same fit on the CPU: the largest
+    relative difference of their objective histories and the largest
+    difference of their probabilities on ``frame``."""
+    h_card = np.asarray(card.objectiveHistory)
+    h_cpu = np.asarray(cpu.objectiveHistory)
+    if h_card.shape != h_cpu.shape or not np.isfinite(h_card).all():
+        raise AssertionError(f"objective histories {h_card.shape} and "
+                             f"{h_cpu.shape}, finite="
+                             f"{np.isfinite(h_card).all()}")
+    p_card = card.transform(frame).collect()["probability"]
+    p_cpu = cpu.transform(frame).collect()["probability"]
+    hist_rel = float(np.abs(h_card / h_cpu - 1).max())
+    prob = float(np.abs(p_card - p_cpu).max())
+    if not (hist_rel <= LR_BOUND_HISTORY_REL and prob <= LR_BOUND_PROB):
+        raise AssertionError(
+            f"card against CPU: history {hist_rel} (bound "
+            f"{LR_BOUND_HISTORY_REL}), probabilities {prob} (bound "
+            f"{LR_BOUND_PROB})")
+    return {"history_rel_max_diff": hist_rel, "prob_max_abs_diff": prob,
+            "bound_history_rel": LR_BOUND_HISTORY_REL,
+            "bound_prob": LR_BOUND_PROB}
+
+
+def lr_fields(model):
+    """A fitted model's ``fitStats`` with its ms a step."""
+    st = dict(model.fitStats)
+    st["ms_per_iteration"] = st["train_s"] / st["steps"] * 1e3
+    st["final_loss"] = float(model.objectiveHistory[-1])
+    return st
+
+
+def transfer(torch, np, smi_line, frame):
+    """``Pipeline([DeepImageFeaturizer(InceptionV3, deviceResizeFrom=
+    (512, 512)), LogisticRegression(maxIter=100, regParam=1e-3)])`` fitted
+    on the card over the featurize phase's frame with labels ``i % 10``,
+    then transform and ``ClassificationEvaluator``: K1 launches 8 times
+    in the fit's collect, once for the runner's output-shape probe and 8
+    times in the transform (the counted run); the
+    same fit on the CPU over the collected features agrees within the
+    stated bounds; the saved and reloaded model transforms to the same
+    bits. Returns K1's launches."""
+    import tempfile
+
+    from sparkdl_tpu_torch import (
+        ClassificationEvaluator,
+        DataFrame,
+        LogisticRegression,
+        Pipeline,
+        load_model,
+    )
+    from sparkdl_tpu_torch.ops import infeed
+
+    _, rows, _, _ = frame
+    labels = np.arange(N_IMAGES) % LR_CLASSES
+    df = DataFrame.from_pylist([{**r, "label": int(l)}
+                                for r, l in zip(rows, labels)],
+                               num_partitions=PARTITIONS)
+    pipe = Pipeline(stages=[featurizer(), LogisticRegression(
+        maxIter=LR_ITERS, regParam=LR_REG)])
+    infeed.launches = infeed.yuv420_launches = 0
+    t0 = time.perf_counter()
+    model = pipe.fit(df)
+    fit_s = time.perf_counter() - t0
+    fit_launches = infeed.launches
+    t1 = time.perf_counter()
+    out = model.transform(df).collect()
+    transform_s = time.perf_counter() - t1
+    launches = infeed.launches
+    # one launch a batch in the fit's collect and in the transform, and
+    # one more in the fit: the memory-budget estimate reads the frame's
+    # zero-row schema, and the runner learns its empty output's shape
+    # from a one-row forward (the JAX package's runner from eval_shape)
+    per_pass = N_IMAGES // BATCH
+    if fit_launches != per_pass + 1 or launches != 2 * per_pass + 1 \
+            or infeed.yuv420_launches:
+        raise AssertionError(f"transfer: K1 launched {fit_launches} times "
+                             f"in the fit and {launches} in all, K2 "
+                             f"{infeed.yuv420_launches}")
+    check_order(out, rows)
+    lr = model.stages[1]
+    st = lr_fields(lr)
+    if st["mode"] != "full_batch" or not st["device"].startswith("cuda"):
+        raise AssertionError(f"the fit ran {st['mode']} on {st['device']}")
+    feats = np.asarray(out["features"])
+    probs = np.asarray(out["probability"])
+    sums = float(np.abs(probs.sum(1) - 1).max())
+    if feats.shape != (N_IMAGES, FEATURES) or \
+            probs.shape != (N_IMAGES, LR_CLASSES) or \
+            not np.isfinite(probs).all() or not sums <= 1e-5:
+        raise AssertionError(f"features {feats.shape}, probabilities "
+                             f"{probs.shape}, finite="
+                             f"{np.isfinite(probs).all()}, sums off by "
+                             f"{sums}")
+    accuracy = ClassificationEvaluator().evaluate(DataFrame.from_columns(
+        {"prediction": out["prediction"], "label": out["label"]}))
+    # the same fit on the CPU, from the same seed, on these features
+    features = DataFrame.from_columns({"features": feats, "label": labels},
+                                      PARTITIONS)
+    cpu = LogisticRegression(maxIter=LR_ITERS, regParam=LR_REG,
+                             device="cpu").fit(features)
+    agreement = lr_agreement(np, lr, cpu, features)
+    with tempfile.TemporaryDirectory() as d:
+        model.save(os.path.join(d, "model"))
+        again = load_model(os.path.join(d, "model")).transform(df).collect()
+    reload_equal = {k: bool(np.array_equal(again[k], out[k]))
+                    for k in ("features", "probability", "prediction")}
+    # the LR's own work: its fit less the collect (the featurizer's run)
+    # and the estimate (the featurizer's output-shape probe); what its
+    # timed parts leave is the host work between them (labels, one-hot)
+    lr_fit_s = st["fit_s"] - st["collect_s"] - st["estimate_s"]
+    st["other_s"] = lr_fit_s - st["setup_s"] - st["upload_s"] - st["train_s"]
+    emit("transfer", model="InceptionV3", images=N_IMAGES,
+         partitions=PARTITIONS, classes=LR_CLASSES, max_iter=LR_ITERS,
+         reg=LR_REG, launches={KERNEL: launches, "fit": fit_launches},
+         fit_s=fit_s, featurize_s=fit_s - lr_fit_s, lr_fit_s=lr_fit_s,
+         lr=st, transform_s=transform_s, prob_sum_max_diff=sums,
+         train_accuracy=accuracy, cpu_agreement=agreement,
+         reload_bit_equal=reload_equal, card=smi_line)
+    if not all(reload_equal.values()):
+        raise AssertionError(f"the reloaded model's transform differs: "
+                             f"{reload_equal}")
+    return launches
+
+
+def transfer_trained(torch, np, smi_line):
+    """The committed TestNet's features over its provenance's dataset:
+    ``Pipeline([DeepImageFeaturizer("TestNet"), LogisticRegression()])``
+    fitted on the train split and scored on the held-out split, then
+    ``CrossValidator`` and ``TrainValidationSplit`` over a grid of
+    ``regParam`` × ``maxIter`` on the cached featurized train split; each
+    best model's held-out accuracy at least 0.95."""
+    from sparkdl_tpu_torch import (
+        ClassificationEvaluator,
+        CrossValidator,
+        DataFrame,
+        DeepImageFeaturizer,
+        LogisticRegression,
+        ParamGridBuilder,
+        Pipeline,
+        TrainValidationSplit,
+    )
+    from sparkdl_tpu_torch.image.imageIO import imageArrayToStruct
+    from sparkdl_tpu_torch.models import zoo
+    from sparkdl_tpu_torch.models.testnet import synthetic_testnet_dataset
+
+    with open(os.path.join(zoo.ARTIFACTS_DIR,
+                           "TestNet.provenance.json")) as f:
+        ds = json.load(f)["dataset"]
+
+    def split(n, seed):
+        x, y = synthetic_testnet_dataset(n, seed=seed, noise=ds["noise"],
+                                         proto_seed=ds["proto_seed"])
+        return DataFrame.from_pylist(
+            [{"image": imageArrayToStruct(a, origin=f"r{i}"),
+              "label": int(l)} for i, (a, l) in enumerate(zip(x, y))],
+            num_partitions=PARTITIONS)
+
+    train = split(ds["n_train"], ds["seed"])
+    test = split(ds["n_eval"], ds["eval_seed"])
+    ev = ClassificationEvaluator()
+
+    def featurizer_testnet():
+        return DeepImageFeaturizer(modelName="TestNet", inputCol="image",
+                                   outputCol="features", batchSize=BATCH)
+
+    t0 = time.perf_counter()
+    model = Pipeline(stages=[featurizer_testnet(),
+                             LogisticRegression()]).fit(train)
+    fit_s = time.perf_counter() - t0
+    accuracy = ev.evaluate(model.transform(test))
+    train_f = featurizer_testnet().transform(train).cache()
+    test_f = featurizer_testnet().transform(test).cache()
+    grid = ParamGridBuilder().addGrid(LogisticRegression.regParam, TUNE_REG) \
+        .addGrid(LogisticRegression.maxIter, TUNE_ITERS).build()
+    tuned = {}
+    for name, tuner in (
+            ("cross_validator", CrossValidator(
+                estimator=LogisticRegression(), estimatorParamMaps=grid,
+                evaluator=ev, numFolds=TUNE_FOLDS)),
+            ("train_validation_split", TrainValidationSplit(
+                estimator=LogisticRegression(), estimatorParamMaps=grid,
+                evaluator=ev, trainRatio=TUNE_TRAIN_RATIO))):
+        t = time.perf_counter()
+        fitted = tuner.fit(train_f)
+        metrics = getattr(fitted, "avgMetrics", None) \
+            or fitted.validationMetrics
+        tuned[name] = {"seconds": time.perf_counter() - t,
+                       "metrics": [float(m) for m in metrics],
+                       "best_held_out_accuracy": ev.evaluate(
+                           fitted.transform(test_f)),
+                       "best": lr_fields(fitted.bestModel)}
+    emit("transfer_trained", model="TestNet", dataset=ds,
+         train_rows=ds["n_train"], held_out_rows=ds["n_eval"],
+         fit_s=fit_s, lr=lr_fields(model.stages[1]),
+         held_out_accuracy=accuracy, min_accuracy=TESTNET_MIN_ACCURACY,
+         grid={"regParam": list(TUNE_REG), "maxIter": list(TUNE_ITERS)},
+         num_folds=TUNE_FOLDS, train_ratio=TUNE_TRAIN_RATIO, tuned=tuned,
+         card=smi_line)
+    accuracies = [accuracy] + [t["best_held_out_accuracy"]
+                               for t in tuned.values()]
+    if not all(a >= TESTNET_MIN_ACCURACY for a in accuracies) or not all(
+            np.isfinite(t["metrics"]).all() for t in tuned.values()):
+        raise AssertionError(f"transfer_trained: held-out accuracies "
+                             f"{accuracies}, metrics "
+                             f"{[t['metrics'] for t in tuned.values()]}")
+
+
+def logreg_scale(torch, np, smi_line):
+    """``LogisticRegression`` alone on 262,144 × 2,048 fp32 seeded
+    features (10 classes, 64 partitions): full-batch for 100 steps with
+    its ms a step beside the bound, the step alone on the resident table
+    by CUDA events, one minibatch and one streaming epoch at batch 4096,
+    the default memory budget's switch to streaming, and the card
+    against the CPU on the first 8,192 rows."""
+    import logging
+
+    from sparkdl_tpu_torch import ClassificationEvaluator, DataFrame
+    from sparkdl_tpu_torch import LogisticRegression
+    from sparkdl_tpu_torch.estimators.logistic_regression import (
+        _AdamTrainer,
+    )
+
+    t0 = time.perf_counter()
+    # seeded on the card: class means 5e-4 apart in scale under N(0, 0.01)
+    # noise, so the classes overlap and the probabilities stay off 0 and 1
+    g = torch.Generator(device="cuda").manual_seed(0)
+    means = torch.randn(LR_CLASSES, FEATURES, generator=g,
+                        device="cuda") * 5e-4
+    y = np.arange(LR_ROWS) % LR_CLASSES
+    X = (means[torch.from_numpy(y).cuda()] + 0.01 * torch.randn(
+        LR_ROWS, FEATURES, generator=g, device="cuda")).cpu().numpy()
+    setup_s = time.perf_counter() - t0
+    df = DataFrame.from_columns({"features": X, "label": y}, LR_PARTITIONS)
+
+    full = LogisticRegression(maxIter=LR_ITERS, memoryBudgetBytes=0).fit(df)
+    full_st = lr_fields(full)
+    if full_st["mode"] != "full_batch" or \
+            not np.isfinite(full.objectiveHistory).all():
+        raise AssertionError(f"full-batch fit: {full_st}")
+    # the step alone on the resident table, as the fit runs it
+    Xd = torch.from_numpy(X).cuda()
+    Yd = torch.from_numpy(np.eye(LR_CLASSES, dtype=np.float32)[y]).cuda()
+    trainer = _AdamTrainer(full.coefficients, full.intercept,
+                           torch.device("cuda"), 0.1, 0.0)
+    step_ms = events_ms(torch, lambda: trainer.step(Xd, Yd), iters=20,
+                        warmup=3)
+    del Xd, Yd, trainer
+    # the step reads X twice (the logits, then the weights' gradient)
+    nbytes = 2 * X.nbytes
+    flops = 4 * LR_ROWS * FEATURES * LR_CLASSES
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    train_accuracy = ClassificationEvaluator().evaluate(full.transform(df))
+
+    modes = {}
+    for name, kw in (("minibatch", dict(memoryBudgetBytes=0)),
+                     ("streaming", dict(streaming=True))):
+        m = LogisticRegression(maxIter=1, batchSize=LR_BATCH, **kw).fit(df)
+        modes[name] = lr_fields(m)
+        if modes[name]["mode"] != name or \
+                modes[name]["steps"] != LR_ROWS // LR_BATCH or \
+                not np.isfinite(m.objectiveHistory).all():
+            raise AssertionError(f"{name} fit: {modes[name]}")
+
+    class Capture(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    capture = Capture()
+    lr_logger = logging.getLogger(
+        "sparkdl_tpu_torch.estimators.logistic_regression")
+    lr_logger.addHandler(capture)
+    try:
+        auto = LogisticRegression(maxIter=1).fit(df)
+    finally:
+        lr_logger.removeHandler(capture)
+    switched = any("auto-switching to the streaming fit" in m
+                   for m in capture.messages)
+    modes["auto_switch"] = {**lr_fields(auto), "warned": switched}
+    if not switched or auto.fitStats["mode"] != "streaming":
+        raise AssertionError(f"default budget: {modes['auto_switch']}")
+
+    small = DataFrame.from_columns({"features": X[:LR_CHECK_ROWS],
+                                    "label": y[:LR_CHECK_ROWS]}, PARTITIONS)
+    card = LogisticRegression(maxIter=LR_CHECK_ITERS).fit(small)
+    cpu = LogisticRegression(maxIter=LR_CHECK_ITERS,
+                             device="cpu").fit(small)
+    agreement = lr_agreement(np, card, cpu, small)
+    emit("logreg_scale", rows=LR_ROWS, features=FEATURES,
+         classes=LR_CLASSES, partitions=LR_PARTITIONS,
+         table_bytes=X.nbytes, setup_s=setup_s, full_batch=full_st,
+         step_device_ms=step_ms, bound_ms=bound_ms,
+         bound_by="bytes" if t_bytes >= t_ops else "operations",
+         bound_bytes=nbytes, bound_flops=flops,
+         bound_share=bound_ms / full_st["ms_per_iteration"],
+         step_bound_share=bound_ms / step_ms,
+         train_accuracy=train_accuracy, modes=modes,
+         cpu_check={"rows": LR_CHECK_ROWS, "iterations": LR_CHECK_ITERS,
+                    **agreement}, card=smi_line)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1351,10 +1716,13 @@ def main():
         torch, np, smi, frame, head)
     k1_paths["small_partitions"] = small_partitions(torch, np, smi, frame,
                                                     ref, runs)
+    k1_paths["transfer"] = transfer(torch, np, smi, frame)
     del frame, head
     yuv_paths = {"headline": yuv_launches, "strategies": yuv_strategies}
     yuv_launches = sum(yuv_paths.values())
     trained_predict(torch, np, smi)
+    transfer_trained(torch, np, smi)
+    logreg_scale(torch, np, smi)
 
     launches = sum(k1_paths.values())
     emit("kernels", launches={KERNEL: launches, KERNEL_YUV420: yuv_launches},

@@ -3,8 +3,11 @@
 The same pipeline surface as ``sparkdl_tpu`` (``readImages`` →
 ``DeepImageFeaturizer`` or ``DeepImagePredictor`` over every model of the
 zoo → a features or predictions column, and ``readImagesPacked`` →
-``TensorTransformer`` over a device-resize model), run by PyTorch on an
-NVIDIA GPU, with the JAX package's hand-written TPU kernel and its
+``TensorTransformer`` over a device-resize model; the transfer-learning
+flow ``Pipeline([DeepImageFeaturizer, LogisticRegression])`` with its
+evaluators, ``CrossValidator`` / ``TrainValidationSplit`` and
+``load_model``), run by PyTorch on an NVIDIA GPU, with the JAX package's
+hand-written TPU kernel and its
 4:2:0 resize-and-colour op rewritten as CUDA kernels
 (``ops/csrc/resize_normalize.cu``, ``ops/csrc/yuv420_resize_normalize.cu``).
 
@@ -34,6 +37,22 @@ _EXPORTS = {
     "TensorTransformer": ("sparkdl_tpu_torch.transformers.tensor_transform",
                           "TensorTransformer"),
     "DataFrame": ("sparkdl_tpu_torch.data.frame", "DataFrame"),
+    "LogisticRegression": ("sparkdl_tpu_torch.estimators.logistic_regression",
+                           "LogisticRegression"),
+    "Pipeline": ("sparkdl_tpu_torch.params.pipeline", "Pipeline"),
+    "CrossValidator": ("sparkdl_tpu_torch.params.tuning", "CrossValidator"),
+    "TrainValidationSplit": ("sparkdl_tpu_torch.params.tuning",
+                             "TrainValidationSplit"),
+    "ParamGridBuilder": ("sparkdl_tpu_torch.params.tuning",
+                         "ParamGridBuilder"),
+    "ClassificationEvaluator": ("sparkdl_tpu_torch.estimators.evaluators",
+                                "ClassificationEvaluator"),
+    "BinaryClassificationEvaluator": (
+        "sparkdl_tpu_torch.estimators.evaluators",
+        "BinaryClassificationEvaluator"),
+    "LossEvaluator": ("sparkdl_tpu_torch.estimators.evaluators",
+                      "LossEvaluator"),
+    "load_model": ("sparkdl_tpu_torch.params.persistence", "load_stage"),
 }
 
 __all__ = list(_EXPORTS)

@@ -6,13 +6,18 @@ A partition is a :class:`Source` that loads one batch (an ordered dict
 of column → ndarray); a frame is its sources plus a plan of
 batch → batch stages, run lazily by its engine
 (``data/engine.py::LocalEngine``, the default engine unless the frame
-was given one) when the frame is collected. There is no pyarrow: strings and image structs are object
-arrays, tensor columns are ``[N, *shape]`` arrays.
+was given one) when the frame is collected. There is no pyarrow: strings
+and image structs are object arrays, tensor columns are ``[N, *shape]``
+arrays. A frame's "schema" is a zero-row prototype batch: the column
+names in order, each an empty array of the column's dtype and row shape.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import threading
 from typing import Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -75,12 +80,19 @@ class Source:
     """One partition: ``load`` materializes its batch; ``num_rows`` is a
     count known without loading (None = unknown). ``logical_index``,
     when set, is the partition's identity for ``with_index`` stages
-    (None = its position). ``effectful`` marks a ``load`` with side
-    effects: the engine then quiesces in-flight sibling loads before
-    returning control on error or abandonment."""
+    (None = its position), so reordering partitions
+    (``with_partition_order``) never changes what a seeded stage draws
+    for one. ``schema_hint``, when set, is a zero-row prototype equal to
+    ``load()``'s columns: ``DataFrame.schema`` then runs the plan on it
+    without loading the partition. ``effectful`` marks a ``load`` with
+    side effects (``cache_to_disk`` spills write in it): the engine then
+    quiesces in-flight sibling loads before returning control on error
+    or abandonment."""
     load: Callable[[], Batch]
     num_rows: Optional[int] = None
     logical_index: Optional[int] = None
+    schema_hint: Optional[Batch] = dataclasses.field(default=None,
+                                                     compare=False)
     effectful: bool = False
 
 
@@ -113,6 +125,20 @@ def num_rows(batch: Batch) -> int:
     return len(next(iter(batch.values()))) if batch else 0
 
 
+def prototype(batch: Batch) -> Batch:
+    """The zero-row prototype of a batch (same columns, dtypes, row
+    shapes)."""
+    return {k: v[:0] for k, v in batch.items()}
+
+
+def apply_plan(plan: Sequence[Stage], batch: Batch, index: int) -> Batch:
+    """Run a plan's stages on one batch, outside any engine."""
+    for stage in plan:
+        batch = (stage.fn(batch, index) if stage.with_index
+                 else stage.fn(batch))
+    return batch
+
+
 class DataFrame:
     """Immutable partitioned frame; transforms return new frames."""
 
@@ -122,6 +148,7 @@ class DataFrame:
         self._sources: List[Source] = list(sources)
         self._plan: List[Stage] = list(plan)
         self._engine = engine or default_engine()
+        self._schema: Optional[Batch] = None
 
     # -- constructors -------------------------------------------------------
 
@@ -133,10 +160,12 @@ class DataFrame:
         n = num_rows(columns)
         num_partitions = max(1, min(num_partitions, n) if n else 1)
         bounds = np.linspace(0, n, num_partitions + 1).astype(int)
+        hint = prototype(columns)
         sources = []
         for lo, hi in zip(bounds[:-1], bounds[1:]):
             part = {k: v[lo:hi] for k, v in columns.items()}
-            sources.append(Source(lambda part=part: part, int(hi - lo)))
+            sources.append(Source(lambda part=part: part, int(hi - lo),
+                                  schema_hint=hint))
         return DataFrame(sources, engine=engine)
 
     @staticmethod
@@ -172,11 +201,156 @@ class DataFrame:
 
         return self.map_batches(_stage, name="filter", row_preserving=False)
 
-    # -- materialization ----------------------------------------------------
+    def select(self, *cols: str) -> "DataFrame":
+        cols = list(cols)
+
+        def _stage(batch: Batch) -> Batch:
+            return {c: column(batch, c) for c in cols}
+
+        return self.map_batches(_stage, name=f"select({','.join(cols)})")
+
+    def drop(self, *cols: str) -> "DataFrame":
+        to_drop = set(cols)
+
+        def _stage(batch: Batch) -> Batch:
+            return {k: v for k, v in batch.items() if k not in to_drop}
+
+        return self.map_batches(_stage, name=f"drop({','.join(cols)})")
+
+    def with_partition_order(self, indices: Sequence[int]) -> "DataFrame":
+        """A frame over the given subset or permutation of this frame's
+        partitions, same plan; each partition keeps its logical index
+        (per-epoch partition shuffles of a streaming fit)."""
+        n = len(self._sources)
+        indices = [int(i) for i in indices]
+        bad = [i for i in indices if not (0 <= i < n)]
+        if bad:
+            raise IndexError(
+                f"partition index {bad[0]} out of range [0, {n})")
+
+        def keep_identity(i: int) -> Source:
+            src = self._sources[i]
+            if src.logical_index is not None:
+                return src
+            return dataclasses.replace(src, logical_index=i)
+
+        return DataFrame([keep_identity(i) for i in indices],
+                         self._plan, self._engine)
+
+    def cache(self) -> "DataFrame":
+        """Run the plan once and return a frame over the result in
+        memory, in as many partitions: later passes (CV folds, epochs)
+        re-slice it instead of re-running the plan."""
+        return DataFrame.from_columns(self.collect(),
+                                      max(1, len(self._sources)),
+                                      self._engine)
+
+    _spill_manifest_lock = threading.Lock()
+
+    def cache_to_disk(self, directory: str) -> "DataFrame":
+        """A frame whose partitions run this frame's plan once each on
+        first load, spill the result to ``directory`` (one ``.npz``, a
+        zip of one ``.npy`` a column, written to a temporary name and
+        renamed), and are read back from disk afterwards. Object
+        columns (strings, image structs) are pickled by numpy: load a
+        spill only from a directory this program wrote. Partition
+        identity (``logical_index``) is kept, so per-epoch partition
+        shuffles compose. Device stages inside the spilled plan run
+        inside ``Source.load``, outside the engine's device lock.
+
+        A populated ``directory`` is reused only when its manifest
+        matches this frame's shape (schema and partition count); a
+        mismatch raises."""
+        os.makedirs(directory, exist_ok=True)
+        plan = list(self._plan)
+        preserving = all(st.row_preserving for st in plan)
+        manifest_path = os.path.join(directory, "_manifest.json")
+        manifest = {"schema": describe_schema(self.schema),
+                    "num_partitions": len(self._sources)}
+        with DataFrame._spill_manifest_lock:
+            if os.path.exists(manifest_path):
+                with open(manifest_path) as f:
+                    existing = json.load(f)
+                if existing != manifest:
+                    raise ValueError(
+                        f"cache directory {directory!r} holds a spill "
+                        "of a DIFFERENT frame (schema or partition count "
+                        "mismatch); use a fresh directory")
+            elif [n for n in os.listdir(directory)
+                  if not n.startswith("_manifest.json.tmp")]:
+                raise ValueError(
+                    f"cache directory {directory!r} is not empty and "
+                    "has no spill manifest; use a fresh directory")
+            else:
+                tmp = (f"{manifest_path}.tmp.{os.getpid()}"
+                       f".{threading.get_ident()}")
+                with open(tmp, "w") as f:
+                    json.dump(manifest, f)
+                os.replace(tmp, manifest_path)
+
+        def make(i: int, src: Source) -> Source:
+            logical = (src.logical_index
+                       if src.logical_index is not None else i)
+            path = os.path.join(directory, f"part_{logical:05d}.npz")
+
+            def _load(src=src, logical=logical, path=path) -> Batch:
+                if os.path.exists(path):
+                    return _read_spill(path)
+                batch = apply_plan(plan, src.load(), logical)
+                # a temporary name per process and thread: a partition
+                # re-submitted after an early stop may overlap its first
+                # load
+                tmp = (f"{path}.tmp.{os.getpid()}"
+                       f".{threading.get_ident()}.npz")
+                names = list(batch)
+                np.savez(tmp, names=np.array(names, dtype=str),
+                         **{f"c{j:04d}": batch[n]
+                            for j, n in enumerate(names)})
+                os.replace(tmp, path)
+                return batch
+
+            return Source(_load, src.num_rows if preserving else None,
+                          logical_index=src.logical_index,
+                          effectful=True)
+
+        out = DataFrame([make(i, s) for i, s in enumerate(self._sources)],
+                        engine=self._engine)
+        # the spilled frame's load IS the plan: probing it would run and
+        # spill a whole partition just to answer a schema question
+        out._schema = self.schema
+        return out
+
+    # -- introspection ------------------------------------------------------
 
     @property
     def num_partitions(self) -> int:
         return len(self._sources)
+
+    @property
+    def schema(self) -> Batch:
+        """The frame's zero-row prototype after the plan, computed once
+        (stages must accept empty batches). When the first source has a
+        ``schema_hint`` (in-memory frames), no partition is loaded;
+        otherwise the first partition loads once and is cut to 0
+        rows."""
+        if self._schema is None:
+            if not self._sources:
+                return {}
+            src = self._sources[0]
+            idx = src.logical_index if src.logical_index is not None else 0
+            proto = (dict(src.schema_hint) if src.schema_hint is not None
+                     else prototype(src.load()))
+            self._schema = apply_plan(self._plan, proto, idx)
+        return self._schema
+
+    @property
+    def schema_probe_free(self) -> bool:
+        """Whether reading :attr:`schema` loads no partition: it is
+        cached, or the first source has a ``schema_hint``."""
+        return (self._schema is not None or not self._sources
+                or self._sources[0].schema_hint is not None)
+
+    # -- materialization ----------------------------------------------------
 
     def stream(self) -> Iterator[Batch]:
         """Ordered iterator of fully transformed partition batches."""
@@ -184,14 +358,22 @@ class DataFrame:
 
     @property
     def columns(self) -> List[str]:
-        """Column names (runs the plan on the first partition)."""
-        for batch in self.stream():
-            return list(batch)
-        return []
+        """Column names (from :attr:`schema`)."""
+        return list(self.schema)
 
-    def collect(self) -> Batch:
-        """The whole frame as one batch."""
-        return concat_batches(list(self.stream()))
+    def collect(self, on_batch=None) -> Batch:
+        """The whole frame as one batch. ``on_batch``, when given, is
+        called with each streamed batch as it arrives (a byte watchdog's
+        seam). Zero-row batches are dropped when others have rows (a
+        column computed from no rows may lack its row shape); when all
+        are empty, the first is kept as the schema carrier."""
+        batches = []
+        for b in self.stream():
+            if on_batch is not None:
+                on_batch(b)
+            batches.append(b)
+        non_empty = [b for b in batches if num_rows(b)]
+        return concat_batches(non_empty or batches[:1])
 
     def collect_rows(self) -> List[dict]:
         batch = self.collect()
@@ -199,10 +381,19 @@ class DataFrame:
                 for i in range(num_rows(batch))]
 
     def count(self) -> int:
+        known = self.known_count()
+        if known is not None:
+            return known
+        return sum(num_rows(b) for b in self.stream())
+
+    def known_count(self) -> Optional[int]:
+        """The row count without running the plan, or None when that
+        would need it (a stage that drops rows, or sources without
+        counts)."""
         if all(st.row_preserving for st in self._plan) and \
                 all(s.num_rows is not None for s in self._sources):
             return sum(s.num_rows for s in self._sources)
-        return sum(num_rows(b) for b in self.stream())
+        return None
 
     def tensor(self, col: str) -> np.ndarray:
         """One tensor column as a stacked ndarray [N, *shape]."""
@@ -211,3 +402,14 @@ class DataFrame:
     def __repr__(self) -> str:
         return (f"DataFrame({len(self._sources)} partitions, "
                 f"{len(self._plan)} stages)")
+
+
+def describe_schema(schema: Batch) -> list:
+    """``[name, dtype, row shape]`` of each column of a prototype."""
+    return [[k, v.dtype.str, list(v.shape[1:])] for k, v in schema.items()]
+
+
+def _read_spill(path: str) -> Batch:
+    with np.load(path, allow_pickle=True) as z:
+        names = [str(n) for n in z["names"]]
+        return {n: z[f"c{j:04d}"] for j, n in enumerate(names)}

@@ -53,3 +53,11 @@ def column_to_tensor(column: np.ndarray) -> np.ndarray:
     if len(column) == 0:
         return np.zeros((0,), np.float32)
     return np.stack([np.asarray(v) for v in column])
+
+
+def column_values(column: np.ndarray) -> np.ndarray:
+    """A scalar column's values as an array: an object column (Python
+    values, e.g. from ``from_pylist``) becomes ``np.asarray`` of them, as
+    the JAX package reads a column through its Python values."""
+    column = np.asarray(column)
+    return np.asarray(column.tolist()) if column.dtype == object else column

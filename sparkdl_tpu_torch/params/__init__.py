@@ -1,11 +1,27 @@
-"""Param machinery and the shared param mixins of the port."""
+"""Param machinery, the pipeline and tuning stages, and the shared param
+mixins of the port."""
 
 from sparkdl_tpu_torch.params.base import (  # noqa: F401
     Param,
     Params,
-    Transformer,
     TypeConverters,
     keyword_only,
+)
+from sparkdl_tpu_torch.params.pipeline import (  # noqa: F401
+    EmptyScoredFrameError,
+    Estimator,
+    Evaluator,
+    Model,
+    Pipeline,
+    PipelineModel,
+    Transformer,
+)
+from sparkdl_tpu_torch.params.tuning import (  # noqa: F401
+    CrossValidator,
+    CrossValidatorModel,
+    ParamGridBuilder,
+    TrainValidationSplit,
+    TrainValidationSplitModel,
 )
 from sparkdl_tpu_torch.params.shared import (  # noqa: F401
     HasBatchSize,
@@ -13,6 +29,7 @@ from sparkdl_tpu_torch.params.shared import (  # noqa: F401
     HasDeviceResizeFrom,
     HasInputCol,
     HasInputMapping,
+    HasLabelCol,
     HasModelFunction,
     HasOutputCol,
     HasOutputMapping,

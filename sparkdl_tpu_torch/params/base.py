@@ -1,13 +1,13 @@
-"""Core Param/Params machinery and the Transformer base — counterpart of
-``sparkdl_tpu/params/base.py`` and ``params/pipeline.py::Transformer``
-(pyspark's ``Params`` semantics: typed params, a class-level registry,
-explicit values over defaults, param-map overrides on ``transform``)."""
+"""Core Param/Params machinery — counterpart of
+``sparkdl_tpu/params/base.py`` (pyspark's ``Params`` semantics: typed
+params, a class-level registry, explicit values over defaults, param
+maps, and ``save``). ``Transformer`` lives in ``params/pipeline.py`` and
+is re-exported here."""
 
 from __future__ import annotations
 
 import copy
 import functools
-from abc import abstractmethod
 from typing import Any, Callable, Dict, Optional
 
 
@@ -69,6 +69,9 @@ class Params:
                     seen[attr.name] = attr
         return [seen[k] for k in sorted(seen)]
 
+    def hasParam(self, paramName: str) -> bool:
+        return any(p.name == paramName for p in self.params)
+
     def getParam(self, paramName: str) -> Param:
         for p in self.params:
             if p.name == paramName:
@@ -105,6 +108,17 @@ class Params:
         self._paramMap[p] = p.typeConverter(value)
         return self
 
+    def setParams(self, **kwargs) -> "Params":
+        """Set several params by name (``lr.setParams(maxIter=10)``);
+        unknown names raise, and an explicit ``None`` clears the param
+        back to its default."""
+        for name, value in kwargs.items():
+            if value is None:
+                self.clear(name)
+            else:
+                self.set(name, value)
+        return self
+
     def _set(self, **kwargs) -> "Params":
         for name, value in kwargs.items():
             if value is None:
@@ -122,6 +136,29 @@ class Params:
         self._paramMap.pop(self._resolveParam(param), None)
         return self
 
+    def extractParamMap(self, extra: Optional[dict] = None) -> dict:
+        pm = dict(self._defaultParamMap)
+        pm.update(self._paramMap)
+        if extra:
+            pm.update(extra)
+        return pm
+
+    def explainParam(self, param) -> str:
+        """One param's doc and current value. A Param object of another
+        class raises rather than explaining a same-named param."""
+        if isinstance(param, Param) \
+                and not any(p == param for p in self.params):
+            raise ValueError(
+                f"Param {param.name!r} does not belong to "
+                f"{type(self).__name__}")
+        p = self._resolveParam(param)
+        cur = (repr(self.getOrDefault(p))
+               if self.isDefined(p) else "undefined")
+        return f"{p.name}: {p.doc} (current: {cur})"
+
+    def explainParams(self) -> str:
+        return "\n".join(self.explainParam(p) for p in self.params)
+
     def copy(self, extra: Optional[dict] = None) -> "Params":
         that = copy.copy(self)
         that._paramMap = dict(self._paramMap)
@@ -131,6 +168,46 @@ class Params:
                 rp = that._resolveParam(p)
                 that._paramMap[rp] = rp.typeConverter(v)
         return that
+
+    def _copyValues(self, to: "Params", extra: Optional[dict] = None):
+        for p, v in self.extractParamMap(extra).items():
+            if to.hasParam(p.name):
+                to._set(**{p.name: v})
+        return to
+
+    # -- persistence --------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Persist this stage (params, fitted state, child stages) to a
+        directory; reload with :func:`sparkdl_tpu_torch.load_model`."""
+        from sparkdl_tpu_torch.params.persistence import save_stage
+        save_stage(self, path)
+
+    def _extra_state(self) -> Dict[str, Any]:
+        """Non-Param fitted state to persist (coefficients, histories);
+        restored through ``_from_saved``'s ``extra``."""
+        return {}
+
+    def _child_stages(self) -> Dict[str, "Params"]:
+        """Nested stages saved as subdirectories; sorted keys are the
+        reload order."""
+        return {}
+
+    def _unsaved_param_names(self) -> set:
+        """Params left out of a save (saved as children instead)."""
+        return set()
+
+    @classmethod
+    def _from_saved(cls, params: Dict[str, Any], extra: Dict[str, Any],
+                    children: Dict[str, "Params"]) -> "Params":
+        """Rebuild from saved state: explicit params go back into the
+        ``keyword_only`` constructor. Stages with fitted state or
+        children override this."""
+        if extra or children:
+            raise NotImplementedError(
+                f"{cls.__name__} saved extra state/children but does "
+                "not override _from_saved")
+        return cls(**params)
 
 
 class TypeConverters:
@@ -151,9 +228,28 @@ class TypeConverters:
         return int(value)
 
     @staticmethod
+    def toFloat(value) -> float:
+        if isinstance(value, bool) or not isinstance(value, (int, float)):
+            raise TypeError(f"expected float, got {type(value).__name__}")
+        return float(value)
+
+    @staticmethod
     def toBoolean(value) -> bool:
         if not isinstance(value, bool):
             raise TypeError(f"expected bool, got {type(value).__name__}")
+        return value
+
+    @staticmethod
+    def toList(value) -> list:
+        if isinstance(value, (list, tuple)):
+            return list(value)
+        raise TypeError(f"expected list, got {type(value).__name__}")
+
+    @staticmethod
+    def toListString(value) -> list:
+        value = TypeConverters.toList(value)
+        if not all(isinstance(v, str) for v in value):
+            raise TypeError("expected list of str")
         return value
 
     @staticmethod
@@ -216,14 +312,6 @@ class TypeConverters:
             f"expected ModelFunction, got {type(value).__name__}")
 
 
-class Transformer(Params):
-    """A pipeline stage mapping DataFrame → DataFrame."""
-
-    def transform(self, dataset, params: Optional[dict] = None):
-        if params:
-            return self.copy(params)._transform(dataset)
-        return self._transform(dataset)
-
-    @abstractmethod
-    def _transform(self, dataset):
-        raise NotImplementedError
+# Transformer moved to params/pipeline.py with the other stage bases; the
+# import sits last because pipeline.py imports this module's names.
+from sparkdl_tpu_torch.params.pipeline import Transformer  # noqa: E402,F401

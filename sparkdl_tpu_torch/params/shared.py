@@ -1,5 +1,5 @@
 """Shared param mixins — counterpart of ``sparkdl_tpu/params/shared.py``
-for the mixins this port's transformers use, plus ``HasDevice``."""
+for the mixins this port's stages use, plus ``HasDevice``."""
 
 from __future__ import annotations
 
@@ -26,6 +26,17 @@ class HasOutputCol(Params):
 
     def getOutputCol(self) -> str:
         return self.getOrDefault("outputCol")
+
+
+class HasLabelCol(Params):
+    labelCol = Param("HasLabelCol", "labelCol", "label column name",
+                     TypeConverters.toString)
+
+    def setLabelCol(self, value: str):
+        return self._set(labelCol=value)
+
+    def getLabelCol(self) -> str:
+        return self.getOrDefault("labelCol")
 
 
 def _toOutputMode(value):

@@ -134,10 +134,11 @@ def test_device_resize_rounds_like_jax():
 
 def test_import_closure_and_chip_smoke_without_cuda():
     """Importing the port and every submodule (the zoo's models, the
-    msgpack reader, the resilience package, the engine and the runner
-    among them), chip_smoke.py and k2_phases.py, loads none
-    of jax, flax, sparkdl_tpu, pyarrow, PIL or msgpack; and without CUDA chip_smoke.py and k2_phases.py exit non-zero
-    and print nothing on stdout."""
+    msgpack reader, the resilience package, the engine and the runner,
+    the estimators, tuning and persistence among them), chip_smoke.py
+    and k2_phases.py, loads none of jax, flax, sparkdl_tpu, pyarrow, PIL,
+    msgpack or cloudpickle; and without CUDA chip_smoke.py and
+    k2_phases.py exit non-zero and print nothing on stdout."""
     code = (
         "import contextlib, importlib, io, json, pkgutil, runpy, sys\n"
         "import sparkdl_tpu_torch\n"
@@ -145,13 +146,19 @@ def test_import_closure_and_chip_smoke_without_cuda():
         "    sparkdl_tpu_torch.__path__, 'sparkdl_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "exports = sorted(n for n in ('readImagesPacked', 'TensorTransformer',\n"
-        "                             'DataFrame', 'DeepImagePredictor')\n"
+        "                             'DataFrame', 'DeepImagePredictor',\n"
+        "                             'LogisticRegression', 'Pipeline',\n"
+        "                             'CrossValidator', 'TrainValidationSplit',\n"
+        "                             'ParamGridBuilder', 'load_model',\n"
+        "                             'ClassificationEvaluator',\n"
+        "                             'BinaryClassificationEvaluator',\n"
+        "                             'LossEvaluator')\n"
         "                 if callable(getattr(sparkdl_tpu_torch, n)))\n"
         "smoke = runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
         "sys.path.insert(0, '.')\n"
         "phases = runpy.run_path('k2_phases.py', run_name='k2_phases')\n"
         "banned = ('jax', 'flax', 'sparkdl_tpu', 'pyarrow', 'PIL', "
-        "'msgpack')\n"
+        "'msgpack', 'cloudpickle')\n"
         "loaded = sorted(n for n in sys.modules\n"
         "                if n.split('.')[0] in banned)\n"
         "out = io.StringIO()\n"
@@ -171,10 +178,16 @@ def test_import_closure_and_chip_smoke_without_cuda():
                 "models.xception", "models.vgg", "models.zoo",
                 "resilience", "resilience.errors", "resilience.policy",
                 "resilience.faults", "data.engine", "data.frame",
-                "runtime.runner"):
+                "runtime.runner", "params.pipeline", "params.tuning",
+                "params.persistence", "estimators.logistic_regression",
+                "estimators.evaluators"):
         assert f"sparkdl_tpu_torch.{mod}" in result["mods"]
-    assert result["exports"] == ["DataFrame", "DeepImagePredictor",
-                                 "TensorTransformer", "readImagesPacked"]
+    assert result["exports"] == sorted([
+        "DataFrame", "DeepImagePredictor", "TensorTransformer",
+        "readImagesPacked", "LogisticRegression", "Pipeline",
+        "CrossValidator", "TrainValidationSplit", "ParamGridBuilder",
+        "load_model", "ClassificationEvaluator",
+        "BinaryClassificationEvaluator", "LossEvaluator"])
     assert result["loaded"] == []
     assert result["rc"] != 0 and result["rc_phases"] != 0
     assert result["smoke_stdout"] == ""
@@ -803,3 +816,62 @@ def test_meta_build_refuses_a_tensor_left_on_meta():
 def state_dict_of_linear():
     return {"weight": torch.arange(6, dtype=torch.float64).view(3, 2),
             "bias": torch.zeros(3, dtype=torch.float64)}
+
+
+def test_transfer_pipeline_matches_jax_on_committed_testnet(empty_caches,
+                                                            monkeypatch):
+    """The transfer-learning flow, ``Pipeline([DeepImageFeaturizer(
+    "TestNet"), LogisticRegression()])``, fitted in both packages on the
+    same 384 train images from the same initial weights (the JAX
+    package's draw, carried across), then scored on 128 held-out images:
+    the same held-out accuracy, and probabilities within TOL_PROB (the
+    features agree within TOL_FEATURES and the two Adam runs differ only
+    in summation order)."""
+    import pyarrow as pa
+    import sparkdl_tpu
+    import sparkdl_tpu_torch
+    from sparkdl_tpu.data.frame import DataFrame as JaxDataFrame
+    from sparkdl_tpu.estimators.logistic_regression import (
+        LogisticRegression as JaxLR,
+    )
+    from sparkdl_tpu.image import imageIO as jax_io
+    from sparkdl_tpu_torch.estimators.logistic_regression import (
+        LogisticRegression,
+    )
+    TOL_PROB = 1e-5
+
+    def jax_init(self, n_features, n_classes):
+        params, _, _ = JaxLR(seed=self.getOrDefault("seed"))._init_params(
+            n_features, n_classes)
+        return np.asarray(params["W"]), np.asarray(params["b"])
+
+    monkeypatch.setattr(LogisticRegression, "_init_params", jax_init)
+
+    def frames(n, seed):
+        structs, labels = _testnet_structs(n, seed=seed)
+        batch = jax_io.structsToBatch(structs).append_column(
+            "label", pa.array(labels.astype(np.int64)))
+        jax_df = JaxDataFrame.from_table(pa.Table.from_batches([batch]), 4)
+        df = sparkdl_tpu_torch.DataFrame.from_pylist(
+            [{"image": s, "label": int(l)} for s, l in zip(structs, labels)],
+            4)
+        return jax_df, df
+
+    (jax_train, train), (jax_test, test) = frames(384, 0), frames(128, 1)
+    kw = dict(inputCol="image", outputCol="features", modelName="TestNet",
+              batchSize=32)
+    jax_model = sparkdl_tpu.Pipeline(stages=[
+        sparkdl_tpu.DeepImageFeaturizer(**kw),
+        sparkdl_tpu.LogisticRegression(maxIter=50)]).fit(jax_train)
+    model = sparkdl_tpu_torch.Pipeline(stages=[
+        sparkdl_tpu_torch.DeepImageFeaturizer(device="cpu", **kw),
+        sparkdl_tpu_torch.LogisticRegression(maxIter=50, device="cpu"),
+    ]).fit(train)
+    ref = jax_model.transform(jax_test)
+    out = model.transform(test)
+    np.testing.assert_allclose(out.collect()["probability"],
+                               _jax_tensor(ref.collect(), "probability"),
+                               rtol=0, atol=TOL_PROB)
+    acc = sparkdl_tpu_torch.ClassificationEvaluator().evaluate(out)
+    assert acc == sparkdl_tpu.ClassificationEvaluator().evaluate(ref)
+    assert acc >= 0.95
