@@ -91,7 +91,42 @@ Phases, one JSON line each on stdout:
                    rows through the featurizer: the engine re-chunks
                    them, so the runner reports 8 batches, not 32, and the
                    features equal the 8×64 frame's bit for bit.
-12. ``transfer`` — the transfer-learning flow on the card:
+12. ``host_pipeline`` — the parallel host pipeline under the headline
+                   (K2): ``deviceResizeModel(InceptionV3, (150, 150),
+                   packedFormat="yuv420")`` through ``TensorTransformer``,
+                   batch 64, over 1,024 seeded 150×150 images in 16
+                   partitions of 64, each partition's source drawing its
+                   textured images from (seed, partition) where it loads
+                   and a host stage packing them to 33,750-byte 4:2:0
+                   rows. Serial, then 4 workers in thread mode, then in
+                   process mode (its first pass starts the pool): two
+                   warm passes each, images/s, the overlap ratio
+                   ``(engine.busy_seconds + device.run_seconds) / wall``,
+                   the ``pipeline.*`` counter deltas; every output bit for
+                   bit the serial pass's, K2 16 times a pass, no process
+                   pass falling back to threads, bytes through the
+                   hand-off, a probe task's worker without CUDA, no
+                   ``/dev/shm`` segment left.
+13. ``host_pipeline_k1`` — the featurize configuration (K1) with its 512
+                   seeded 512×512 structs drawn where each partition
+                   loads, serial then twice on the process pool (4
+                   workers): the same features bit for bit, K1 8 times a
+                   pass, every fragment through shared memory, the
+                   hand-off's bytes and seconds.
+14. ``input_service`` — the ``host_pipeline`` frame with its host prefix
+                   on a decode fleet: two ``python -m
+                   sparkdl_tpu_torch.inputsvc serve --port 0``
+                   subprocesses (READY line within a bound), widths 1 and
+                   2, then both beside a dead endpoint; every output bit
+                   for bit the serial pass's, no local decode or RPC error
+                   on the live fleet, the dead endpoint counted down.
+15. ``snapshot`` — ``DataFrame.snapshot`` over the same frame through the
+                   device stage, a cold epoch (16 chunks written) then a
+                   warm one (16 read back, none decoded), each bit for bit
+                   the serial pass's, with each epoch's images/s and
+                   engine busy seconds. Then one ``pipeline_phases`` line:
+                   the four phases' seconds.
+16. ``transfer`` — the transfer-learning flow on the card:
                    ``Pipeline([DeepImageFeaturizer("InceptionV3",
                    deviceResizeFrom=(512, 512)), LogisticRegression(
                    maxIter=100, regParam=1e-3)])`` fitted over the same
@@ -105,19 +140,19 @@ Phases, one JSON line each on stdout:
                    reloaded with ``load_model`` and transformed to the
                    same bits. The fit's seconds split into featurize and
                    LR fit, and the LR's ms a step.
-13. ``trained_predict`` — ``DeepImagePredictor(modelName="TestNet",
+17. ``trained_predict`` — ``DeepImagePredictor(modelName="TestNet",
                    decodePredictions=True, topK=1)`` with the committed,
                    trained weights (read by the port's msgpack reader)
                    over the held-out set its provenance names: accuracy
                    at least 0.95, each decoded name the raw scores' best.
-14. ``transfer_trained`` — ``Pipeline([DeepImageFeaturizer("TestNet"),
+18. ``transfer_trained`` — ``Pipeline([DeepImageFeaturizer("TestNet"),
                    LogisticRegression()])`` on the TestNet's 4,096 train
                    images, then ``CrossValidator`` (3 folds) and
                    ``TrainValidationSplit`` over ``regParam`` {0, 1e-2} ×
                    ``maxIter`` {50, 100} on the cached featurized train
                    split: finite metrics, and held-out accuracy at least
                    0.95 after the fit and for each best model.
-15. ``logreg_scale`` — ``LogisticRegression`` alone on 262,144 × 2,048
+19. ``logreg_scale`` — ``LogisticRegression`` alone on 262,144 × 2,048
                    seeded fp32 features, 10 classes, 64 partitions:
                    full-batch for 100 steps (ms a step beside its bound:
                    the table read twice a step over HBM bandwidth), the
@@ -125,7 +160,7 @@ Phases, one JSON line each on stdout:
                    streaming epoch at batch 4096, the default budget's
                    switch to streaming (with its warning), and the card
                    against the CPU at 8,192 rows, 20 steps.
-16. ``kernels``  — each kernel's launches on its paths and pass/fail.
+20. ``kernels``  — each kernel's launches on its paths and pass/fail.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -136,10 +171,15 @@ meaning.
 """
 
 import contextlib
+import glob
 import json
 import os
+import queue
+import socket
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -214,6 +254,21 @@ LR_PARTITIONS = 64
 LR_BATCH = 4096
 LR_CHECK_ROWS = 8192
 LR_CHECK_ITERS = 20
+# the host pipeline, input service and snapshot phases: the headline's
+# model over 1,024 seeded 150×150 images in 16 partitions of 64, drawn
+# and packed to 4:2:0 rows where each partition loads; 4 pool workers,
+# a fleet of 2 decode servers
+PIPE_IMAGES = 1024
+PIPE_PARTITIONS = 16
+PIPE_WORKERS = 4
+FLEET_WIDTH = 2
+# host_pipeline_k1: the featurize phase's 512 seeded 512×512 images in 8
+# partitions, drawn where each partition loads
+K1_PIPE_SEED = 1
+# the shared-memory segments multiprocessing makes, and the bound on
+# every wait for a worker or a server
+SHM_GLOB = "/dev/shm/psm_*"
+WAIT_S = 60.0
 # transfer_trained: the grid tuned over the TestNet features
 TUNE_REG = (0.0, 1e-2)
 TUNE_ITERS = (50, 100)
@@ -1289,6 +1344,370 @@ def small_partitions(torch, np, smi_line, frame, ref, results):
          runner=counters, card=smi_line)
     return launches
 
+def cuda_probe(batch):
+    """A host stage run in a pool worker: the worker's pid, whether it
+    had loaded torch, and whether it has initialised CUDA."""
+    import numpy as np
+    loaded = "torch" in sys.modules
+    import torch
+    n = len(next(iter(batch.values())))
+    return {"pid": np.full(n, os.getpid()),
+            "torch_loaded": np.full(n, loaded),
+            "cuda_initialized": np.full(n, torch.cuda.is_initialized())}
+
+
+def pipe_frame(engine, partitions=PIPE_PARTITIONS):
+    """The host pipeline phases' headline frame: each partition's source
+    draws 64 textured 150×150 images from (seed 0, partition) where it
+    loads, and a host stage packs them to 4:2:0 rows."""
+    from sparkdl_tpu_torch.data.frame import DataFrame, Source
+    from sparkdl_tpu_torch.utils.synth import PackYuv420, SeededImages
+    per = PIPE_IMAGES // PIPE_PARTITIONS
+    return DataFrame([Source(SeededImages(0, p, per, *HEADLINE_SRC), per)
+                      for p in range(partitions)], engine=engine) \
+        .map_batches(PackYuv420(), name="packYuv420")
+
+
+def headline_transformer(mf):
+    from sparkdl_tpu_torch import TensorTransformer
+    return TensorTransformer(
+        modelFunction=mf, inputMapping={"image": "image"},
+        outputMapping={"features": "features"}, batchSize=BATCH)
+
+
+def counter_values():
+    from sparkdl_tpu_torch.obs import Counter, default_registry
+    return {m.name: m.value for m in default_registry().metrics()
+            if isinstance(m, Counter)}
+
+
+def pipe_pass(torch, np, planned, images, kernel, what):
+    """One collect with both kernels' counts set to 0 just before and
+    read just after: its seconds, images/s, the registry's counter
+    deltas, the overlap ratio ``(engine.busy_seconds + device.run_seconds)
+    / wall`` and the launches; ``kernel``'s launches must be one a batch
+    of 64, the other kernel's none."""
+    from sparkdl_tpu_torch.ops import infeed
+    before = counter_values()
+    infeed.launches = infeed.yuv420_launches = 0
+    t0 = time.perf_counter()
+    out = planned.collect()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {KERNEL: infeed.launches, KERNEL_YUV420: infeed.yuv420_launches}
+    after = counter_values()
+    delta = {k: v - before.get(k, 0.0) for k, v in after.items()
+             if v != before.get(k, 0.0)}
+    other = KERNEL if kernel == KERNEL_YUV420 else KERNEL_YUV420
+    if launches[kernel] != images // BATCH or launches[other]:
+        raise AssertionError(f"{what}: launches {launches}, {kernel} must "
+                             f"launch {images // BATCH} times, {other} "
+                             f"none")
+    busy = delta.get("engine.busy_seconds", 0.0)
+    device = delta.get("device.run_seconds", 0.0)
+    return {"seconds": wall, "images_per_s": images / wall,
+            "overlap_ratio": (busy + device) / wall,
+            "engine_busy_s": busy, "device_run_s": device,
+            "launches": {kernel: launches[kernel]},
+            "counters": {k: v for k, v in delta.items()
+                         if k.split(".")[0] in ("pipeline", "inputsvc")}}, out
+
+
+def same_rows(np, out, ref, what):
+    """``out`` against the reference pass bit for bit: the ``image``
+    column (packed rows, or structs by origin: rows in order) and the
+    features."""
+    got_rows, ref_rows = out["image"], ref["image"]
+    if got_rows.dtype == object:
+        same = [r["origin"] for r in got_rows] == \
+            [r["origin"] for r in ref_rows]
+    else:
+        same = np.array_equal(got_rows, ref_rows)
+    if not same:
+        raise AssertionError(f"{what}: rows differ from the serial pass "
+                             "or came back out of order")
+    feats, ref_feats = np.asarray(out["features"]), np.asarray(
+        ref["features"])
+    if feats.shape != ref_feats.shape or not np.isfinite(feats).all() \
+            or not np.array_equal(feats, ref_feats):
+        raise AssertionError(
+            f"{what}: features differ from the serial pass at "
+            f"{int((feats != ref_feats).sum())} values")
+
+
+def shm_free():
+    st = os.statvfs("/dev/shm")
+    return st.f_bavail * st.f_frsize
+
+
+def shm_left(before):
+    """Segments made since ``before`` that are still there after up to
+    ``WAIT_S`` (abandoned fragments are unlinked as they land)."""
+    deadline = time.monotonic() + WAIT_S
+    while True:
+        left = sorted(set(glob.glob(SHM_GLOB)) - before)
+        if not left or time.monotonic() > deadline:
+            return left
+        time.sleep(0.05)
+
+
+def host_pipeline(torch, np, smi_line, mf, proc_engine):
+    """The headline through the parallel host pipeline: serial, then 4
+    workers in thread mode, then in process mode (its first pass starts
+    the pool); every output bit for bit the serial pass's, K2 16 times a
+    pass, no process-pass fallback to threads, bytes through the
+    hand-off, workers without CUDA, no segment left. Returns K2's
+    launches over the counted passes, and the serial pass's output."""
+    from sparkdl_tpu_torch.data.engine import LocalEngine
+    shm_before = set(glob.glob(SHM_GLOB))
+    engines = {"serial": LocalEngine(),
+               "thread": LocalEngine(pipeline_workers=PIPE_WORKERS,
+                                     pipeline_mode="thread"),
+               "process": proc_engine}
+    ref = None
+    modes = {}
+    k2 = 0
+    try:
+        for mode, engine in engines.items():
+            planned = headline_transformer(mf).transform(pipe_frame(engine))
+            passes = []
+            for i in range(3 if mode == "process" else 2):
+                what = f"host_pipeline {mode} pass {i}"
+                result, out = pipe_pass(torch, np, planned, PIPE_IMAGES,
+                                        KERNEL_YUV420, what)
+                if ref is None:
+                    ref = out
+                else:
+                    same_rows(np, out, ref, what)
+                counters = result["counters"]
+                if mode == "process" and (
+                        counters.get("pipeline.fallbacks", 0.0)
+                        or not counters.get("pipeline.handoff_bytes")):
+                    raise AssertionError(f"{what}: not process mode "
+                                         f"through the hand-off: "
+                                         f"{counters}")
+                k2 += result["launches"][KERNEL_YUV420]
+                passes.append(result)
+            warm = passes[1:] if mode == "process" else passes
+            modes[mode] = {
+                "workers": 0 if mode == "serial" else PIPE_WORKERS,
+                "best_images_per_s": max(p["images_per_s"] for p in warm),
+                "passes": passes}
+            if mode == "process":
+                modes[mode]["pool_start_pass_s"] = passes[0]["seconds"]
+        from sparkdl_tpu_torch.data.frame import DataFrame
+        probe = DataFrame.from_columns(
+            {"i": np.arange(2 * PIPE_WORKERS)}, 2 * PIPE_WORKERS,
+            engine=proc_engine).map_batches(cuda_probe).collect()
+    finally:
+        engines["serial"].shutdown()
+        engines["thread"].shutdown()
+    if probe["cuda_initialized"].any() or os.getpid() in set(probe["pid"]):
+        raise AssertionError(f"a pool worker initialised CUDA: {probe}")
+    left = shm_left(shm_before)
+    if left:
+        raise AssertionError(f"host_pipeline left segments {left}")
+    serial = modes["serial"]["best_images_per_s"]
+    emit("host_pipeline", model="InceptionV3", images=PIPE_IMAGES,
+         partitions=PIPE_PARTITIONS, batch=BATCH,
+         source_hw=list(HEADLINE_SRC),
+         packed_row_bytes=int(ref["image"].shape[1]),
+         cpu_count=os.cpu_count(), shm_free_bytes=shm_free(), modes=modes,
+         speedup_vs_serial={m: v["best_images_per_s"] / serial
+                            for m, v in modes.items()},
+         bit_identical=True,
+         worker_probe={"pids": sorted({int(p) for p in probe["pid"]}),
+                       "torch_loaded": bool(probe["torch_loaded"].all()),
+                       "cuda_initialized": False},
+         shm_segments_left=0, card=smi_line)
+    return k2, ref
+
+
+def host_pipeline_k1(torch, np, smi_line, proc_engine):
+    """The featurize configuration (K1) with its 512 seeded 512×512
+    structs drawn where each partition loads, serial then twice on the
+    process pool: the same features bit for bit, K1 8 times a pass, and
+    the hand-off's bytes and seconds. Returns K1's launches over the
+    three passes."""
+    from sparkdl_tpu_torch.data.engine import LocalEngine
+    from sparkdl_tpu_torch.data.frame import DataFrame, Source
+    from sparkdl_tpu_torch.utils.synth import SeededImages
+    shm_before = set(glob.glob(SHM_GLOB))
+    per = N_IMAGES // PARTITIONS
+
+    def frame(engine):
+        return DataFrame([Source(SeededImages(K1_PIPE_SEED, p, per, 512, 512,
+                                              textured=False), per)
+                          for p in range(PARTITIONS)], engine=engine)
+
+    serial_engine = LocalEngine()
+    try:
+        ref_pass, ref = pipe_pass(torch, np,
+                                  featurizer().transform(frame(serial_engine)),
+                                  N_IMAGES, KERNEL, "host_pipeline_k1 serial")
+    finally:
+        serial_engine.shutdown()
+    planned = featurizer().transform(frame(proc_engine))
+    passes = []
+    # the first pass also loads the pack stage's modules (torch among
+    # them) in each worker
+    for i in range(2):
+        what = f"host_pipeline_k1 process pass {i}"
+        result, out = pipe_pass(torch, np, planned, N_IMAGES, KERNEL, what)
+        same_rows(np, out, ref, what)
+        counters = result["counters"]
+        if counters.get("pipeline.fallbacks", 0.0) or \
+                counters.get("pipeline.shm_segments", 0.0) != PARTITIONS:
+            raise AssertionError(f"{what}: every fragment must come "
+                                 f"through shared memory: {counters}")
+        passes.append(result)
+    left = shm_left(shm_before)
+    if left:
+        raise AssertionError(f"host_pipeline_k1 left segments {left}")
+    warm = passes[1]["counters"]
+    emit("host_pipeline_k1", model="InceptionV3", images=N_IMAGES,
+         partitions=PARTITIONS, batch=BATCH, source_hw=[512, 512],
+         workers=PIPE_WORKERS, serial=ref_pass, process_passes=passes,
+         warm_images_per_s={"serial": ref_pass["images_per_s"],
+                            "process": passes[1]["images_per_s"]},
+         handoff_bytes=warm.get("pipeline.handoff_bytes", 0.0),
+         handoff_s=warm.get("pipeline.handoff_seconds", 0.0),
+         bit_identical=True, shm_segments_left=0, card=smi_line)
+    return sum(p["launches"][KERNEL] for p in [ref_pass] + passes)
+
+
+def start_decode_server(repo):
+    """``python -m sparkdl_tpu_torch.inputsvc serve --port 0`` as a
+    subprocess: (process, its ``host:port`` from the READY line, read
+    within ``WAIT_S``)."""
+    env = dict(os.environ, PYTHONPATH=repo)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sparkdl_tpu_torch.inputsvc", "serve",
+         "--port", "0"], stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True, env=env, cwd=repo)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                     daemon=True).start()
+    try:
+        line = lines.get(timeout=WAIT_S)
+    except queue.Empty:
+        proc.kill()
+        raise AssertionError("a decode server printed no READY line") \
+            from None
+    if "READY" not in line:
+        proc.kill()
+        raise AssertionError(f"decode server: {line!r}")
+    return proc, line.split()[-1]
+
+
+def dead_endpoint():
+    """A local port nothing listens on."""
+    sock = socket.create_server(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return f"127.0.0.1:{port}"
+
+
+def input_service(torch, np, smi_line, mf, ref, repo):
+    """The headline frame with its host prefix on a decode fleet of
+    server subprocesses: widths 1 and 2, then 2 live beside a dead
+    endpoint; every output bit for bit the serial pass's, no local
+    decode or RPC error on the live fleet, the dead endpoint counted.
+    Returns K2's launches over the three passes."""
+    from sparkdl_tpu_torch.data.engine import LocalEngine
+    t0 = time.perf_counter()
+    servers = []
+    try:
+        with ThreadPoolExecutor(FLEET_WIDTH) as pool:
+            for f in [pool.submit(start_decode_server, repo)
+                      for _ in range(FLEET_WIDTH)]:
+                servers.append(f.result())
+        start_s = time.perf_counter() - t0
+        endpoints = [ep for _, ep in servers]
+        # each server imports the port's decode modules on its first
+        # request: a two-partition stream warms both
+        warm = LocalEngine(inputsvc_endpoints=endpoints)
+        try:
+            pipe_frame(warm, partitions=FLEET_WIDTH).collect()
+        finally:
+            warm.shutdown()
+        runs = {"width_1": endpoints[:1], "width_2": endpoints,
+                "width_2_and_dead": endpoints + [dead_endpoint()]}
+        results = {}
+        k2 = 0
+        for name, fleet in runs.items():
+            engine = LocalEngine(inputsvc_endpoints=fleet)
+            try:
+                planned = headline_transformer(mf).transform(pipe_frame(engine))
+                result, out = pipe_pass(torch, np, planned, PIPE_IMAGES,
+                                        KERNEL_YUV420, f"input_service {name}")
+            finally:
+                engine.shutdown()
+            same_rows(np, out, ref, f"input_service {name}")
+            c = result["counters"]
+            if c.get("inputsvc.local_decodes", 0.0) or \
+                    c.get("inputsvc.rpc_errors", 0.0) or \
+                    c.get("inputsvc.fallbacks", 0.0) or \
+                    c.get("inputsvc.tasks", 0.0) != PIPE_PARTITIONS:
+                raise AssertionError(f"input_service {name}: {c}")
+            down = c.get("inputsvc.endpoints_down", 0.0)
+            if down != (1 if name == "width_2_and_dead" else 0):
+                raise AssertionError(f"input_service {name}: "
+                                     f"{down} endpoints counted down")
+            k2 += result["launches"][KERNEL_YUV420]
+            results[name] = {"endpoints": len(fleet), **result}
+    finally:
+        for proc, _ in servers:
+            proc.terminate()
+        for proc, _ in servers:
+            try:
+                proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=15)
+    emit("input_service", model="InceptionV3", images=PIPE_IMAGES,
+         partitions=PIPE_PARTITIONS, batch=BATCH, servers=FLEET_WIDTH,
+         server_start_s=start_s, runs=results,
+         images_per_s={k: v["images_per_s"] for k, v in results.items()},
+         bit_identical=True, card=smi_line)
+    return k2
+
+
+def snapshot_phase(torch, np, smi_line, mf, ref):
+    """``DataFrame.snapshot`` over the headline frame, through the device
+    stage: a cold epoch writes 16 chunks, a warm one reads all 16 back;
+    both outputs bit for bit the serial pass's. Returns K2's launches
+    over both epochs."""
+    from sparkdl_tpu_torch.data.engine import LocalEngine
+    engine = LocalEngine()
+    epochs = {}
+    k2 = 0
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            base = pipe_frame(engine)
+            for epoch in ("cold", "warm"):
+                planned = headline_transformer(mf).transform(
+                    base.snapshot(root, fingerprint="seed0-1024x150x150"))
+                result, out = pipe_pass(torch, np, planned, PIPE_IMAGES,
+                                        KERNEL_YUV420, f"snapshot {epoch}")
+                same_rows(np, out, ref, f"snapshot {epoch}")
+                k2 += result["launches"][KERNEL_YUV420]
+                epochs[epoch] = result
+    finally:
+        engine.shutdown()
+    cold, warm = epochs["cold"]["counters"], epochs["warm"]["counters"]
+    if cold.get("inputsvc.snapshot_misses") != PIPE_PARTITIONS or \
+            warm.get("inputsvc.snapshot_hits") != PIPE_PARTITIONS or \
+            warm.get("inputsvc.snapshot_misses", 0.0):
+        raise AssertionError(f"snapshot: cold {cold}, warm {warm}")
+    emit("snapshot", model="InceptionV3", images=PIPE_IMAGES,
+         partitions=PIPE_PARTITIONS, batch=BATCH, epochs=epochs,
+         images_per_s={k: v["images_per_s"] for k, v in epochs.items()},
+         engine_busy_s={k: v["engine_busy_s"] for k, v in epochs.items()},
+         bit_identical=True, card=smi_line)
+    return k2
+
+
 
 def trained_predict(torch, np, smi_line):
     """``DeepImagePredictor(TestNet, decodePredictions=True, topK=1)`` on
@@ -1716,9 +2135,28 @@ def main():
         torch, np, smi, frame, head)
     k1_paths["small_partitions"] = small_partitions(torch, np, smi, frame,
                                                     ref, runs)
+    # the parallel host pipeline and the input service under both paths;
+    # one process pool serves host_pipeline and host_pipeline_k1
+    from sparkdl_tpu_torch.data.engine import LocalEngine
+    proc_engine = LocalEngine(pipeline_workers=PIPE_WORKERS,
+                              pipeline_mode="process")
+    t0 = time.perf_counter()
+    try:
+        yuv_pipe, pipe_ref = host_pipeline(torch, np, smi, head[1],
+                                           proc_engine)
+        k1_paths["host_pipeline_k1"] = host_pipeline_k1(torch, np, smi,
+                                                        proc_engine)
+    finally:
+        proc_engine.shutdown()
+    yuv_fleet = input_service(torch, np, smi, head[1], pipe_ref, repo)
+    yuv_snapshot = snapshot_phase(torch, np, smi, head[1], pipe_ref)
+    emit("pipeline_phases", seconds=time.perf_counter() - t0, card=smi)
+    del pipe_ref
     k1_paths["transfer"] = transfer(torch, np, smi, frame)
     del frame, head
-    yuv_paths = {"headline": yuv_launches, "strategies": yuv_strategies}
+    yuv_paths = {"headline": yuv_launches, "strategies": yuv_strategies,
+                 "host_pipeline": yuv_pipe, "input_service": yuv_fleet,
+                 "snapshot": yuv_snapshot}
     yuv_launches = sum(yuv_paths.values())
     trained_predict(torch, np, smi)
     transfer_trained(torch, np, smi)

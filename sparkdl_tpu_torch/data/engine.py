@@ -23,9 +23,23 @@ spans fragments is concatenated.
 
 Transient failures are retried per partition (or per stream-stage
 call) through one shared :class:`~sparkdl_tpu_torch.resilience.policy.
-RetryPolicy`; each granted retry counts in :attr:`LocalEngine.retries`.
-The JAX engine's parallel host pipeline (``pipeline_*`` knobs) and
-decode fleet (``inputsvc_*``) are not ported yet.
+RetryPolicy`; each granted retry counts in :attr:`LocalEngine.retries`
+and in the registry's ``engine.retries``. Host work (source loads and
+host stages) counts its seconds in ``engine.busy_seconds``, and each
+stage in ``engine.stage_seconds.<name>`` (``sparkdl_tpu_torch/obs``).
+
+With ``pipeline_workers >= 2`` (constructor or
+``SPARKDL_TPU_TORCH_PIPELINE_WORKERS``; typos degrade to serial) the
+host prefix, everything before the first device stage, runs on the
+parallel host pipeline (``data/pipeline.py``): a process pool (threads
+where the plan does not pickle) loads and decodes each partition, hands
+the fragment back through shared memory in the numpy batch codec, and an
+ordered bounded re-merge feeds the same consumer-thread re-chunk and
+device path. With ``inputsvc_endpoints`` (or
+``SPARKDL_TPU_TORCH_INPUTSVC_WORKERS``) the prefix runs on a remote
+decode fleet instead (``inputsvc/``), falling back loudly to the local
+paths when no endpoint answers. The device stage never leaves the
+consumer.
 """
 
 from __future__ import annotations
@@ -34,12 +48,14 @@ import collections
 import logging
 import os
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
 from sparkdl_tpu_torch.data.tensors import Batch
+from sparkdl_tpu_torch.obs import default_registry
 from sparkdl_tpu_torch.resilience.errors import (
     default_retryable_exceptions,
     is_deterministic_device_error,
@@ -102,13 +118,36 @@ class LocalEngine:
     ``max_retries``: re-attempts of a transiently failing partition.
     ``retryable_exceptions``: the retryable set (default
     :func:`~sparkdl_tpu_torch.resilience.errors.
-    default_retryable_exceptions`); CUDA errors are never retried."""
+    default_retryable_exceptions`); CUDA errors are never retried.
+    ``pipeline_workers``, ``pipeline_read_ahead``, ``pipeline_mode``:
+    the parallel host pipeline's knobs (``data/pipeline.py``; None
+    reads the ``SPARKDL_TPU_TORCH_PIPELINE_*`` env vars), plain
+    attributes re-read at every ``execute()``. ``inputsvc_endpoints``:
+    the decode fleet, ``"host:port,..."`` or a list (None reads
+    ``SPARKDL_TPU_TORCH_INPUTSVC_WORKERS``); ``inputsvc_workers`` is
+    the live fan-out width."""
 
     def __init__(self, num_workers: Optional[int] = None,
                  max_inflight: Optional[int] = None,
                  max_retries: int = 2,
-                 retryable_exceptions: Optional[Tuple[type, ...]] = None):
+                 retryable_exceptions: Optional[Tuple[type, ...]] = None,
+                 pipeline_workers: Optional[int] = None,
+                 pipeline_read_ahead: Optional[int] = None,
+                 pipeline_mode: Optional[str] = None,
+                 inputsvc_endpoints=None):
+        from sparkdl_tpu_torch.data.pipeline import (
+            resolve_mode,
+            resolve_read_ahead,
+            resolve_workers,
+        )
+        from sparkdl_tpu_torch.inputsvc.client import resolve_endpoints
         self.num_workers = num_workers or min(32, (os.cpu_count() or 4))
+        self.pipeline_workers = resolve_workers(pipeline_workers)
+        self.pipeline_read_ahead = resolve_read_ahead(
+            pipeline_read_ahead, self.pipeline_workers)
+        self.pipeline_mode = resolve_mode(pipeline_mode)
+        self.inputsvc_endpoints = resolve_endpoints(inputsvc_endpoints)
+        self.inputsvc_workers = len(self.inputsvc_endpoints)
         # a falsy max_inflight is not an explicit window: it would
         # disable the adaptive widening for a value the caller never got
         self._explicit_inflight = (max_inflight is not None
@@ -120,6 +159,12 @@ class LocalEngine:
         self.retryable_exceptions = (
             tuple(retryable_exceptions) if retryable_exceptions is not None
             else default_retryable_exceptions())
+        self.retries = 0
+        self._local_state()
+
+    def _local_state(self) -> None:
+        """What never ships: the thread pool, the locks and the retry
+        policy's budget, made anew in each process."""
         # one policy shared by every pool worker and the consumer
         # thread: the budget only bounds amplification if shared
         self.retry_policy = RetryPolicy(
@@ -129,12 +174,26 @@ class LocalEngine:
             budget_ratio=ENGINE_RETRY_BUDGET_RATIO,
             budget_cap=ENGINE_RETRY_BUDGET_CAP,
             retryable=self._retryable)
-        self.retries = 0
         self._pool = ThreadPoolExecutor(
             max_workers=self.num_workers,
             thread_name_prefix="sparkdl-tpu-torch-host")
         self._device_lock = threading.Lock()
         self._count_lock = threading.Lock()
+        self._pipeline = None           # the HostPipeline, built lazily
+        self._pipeline_lock = threading.Lock()
+
+    # pools, locks and sockets do not pickle: a shipped engine carries
+    # its configuration and builds its pools on first use
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        for name in ("retry_policy", "_pool", "_device_lock",
+                     "_count_lock", "_pipeline", "_pipeline_lock"):
+            del state[name]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._local_state()
 
     def _retryable(self, exc: BaseException) -> bool:
         """Inside the configured exception set and not a CUDA error (a
@@ -144,13 +203,24 @@ class LocalEngine:
 
     def _run_stage(self, stage, batch: Batch, index: int) -> Batch:
         maybe_fail("engine.stage_apply")
-        if stage.with_index:
-            return stage.fn(batch, index)
-        return stage.fn(batch)
+        t0 = time.perf_counter()
+        out = (stage.fn(batch, index) if stage.with_index
+               else stage.fn(batch))
+        dt = time.perf_counter() - t0
+        reg = default_registry()
+        if stage.kind != "device":
+            # device stages wrap runner.run, which feeds
+            # device.run_seconds itself
+            reg.counter("engine.busy_seconds").add(dt)
+        reg.counter(f"engine.stage_seconds.{stage.name}").add(dt)
+        return out
 
     def _run_once(self, source, plan, index: int) -> Batch:
         maybe_fail("engine.source_load")
+        t0 = time.perf_counter()
         batch = source.load()
+        default_registry().counter("engine.busy_seconds").add(
+            time.perf_counter() - t0)
         for stage in plan:
             if stage.kind == "device":
                 with self._device_lock:
@@ -174,6 +244,7 @@ class LocalEngine:
         def on_retry(attempt, exc, delay_s):
             with self._count_lock:
                 self.retries += 1
+            default_registry().counter("engine.retries").add()
             logger.warning(
                 "%s attempt %d/%d failed (%s); retrying in %.3fs",
                 what, attempt, 1 + max(0, self.max_retries), exc,
@@ -200,6 +271,19 @@ class LocalEngine:
         if not sources:
             return iter(())
         plan = list(plan)
+        if self.inputsvc_endpoints and int(self.inputsvc_workers
+                                           or 0) >= 1:
+            # the decode fleet; None when nothing pickles or no
+            # endpoint answers (counted, warned): the local paths below
+            remoted = self._execute_remote(sources, plan)
+            if remoted is not None:
+                return remoted
+        if int(self.pipeline_workers or 0) >= 2:
+            # the parallel host pipeline; None when it resolves to
+            # serial (1-core auto mode): the path below, unchanged
+            pipelined = self._execute_pipelined(sources, plan)
+            if pipelined is not None:
+                return pipelined
         split = next((i for i, st in enumerate(plan)
                       if self._rechunkable(st)), None)
         if split is None:
@@ -230,6 +314,66 @@ class LocalEngine:
                 # parallelism, so device dispatch never waits on them
                 stream = self._stream_pooled(stream, stage)
         return (b for _, b in stream)
+
+    def _host_pipeline(self):
+        from sparkdl_tpu_torch.data.pipeline import HostPipeline
+        with self._pipeline_lock:
+            if self._pipeline is None:
+                self._pipeline = HostPipeline(mode=self.pipeline_mode)
+            return self._pipeline
+
+    def _stream_tail(self, stream, plan: Sequence):
+        """The stages after the host prefix on the consumer thread:
+        re-chunkable device stages get hint-aligned blocks, other device
+        stages run as they come, later host stages keep the pool."""
+        hints = [int(st.batch_hint) for st in plan
+                 if self._rechunkable(st)]
+        for stage in plan:
+            if self._rechunkable(stage):
+                # no adaptive widening: the read-ahead window is the
+                # pooled look-ahead
+                stream = self._stream_rechunk(stream, stage,
+                                              max_hint=max(hints))
+            elif stage.kind == "device":
+                stream = self._stream_plain(stream, stage)
+            else:
+                stream = self._stream_pooled(stream, stage)
+        return (b for _, b in stream)
+
+    @staticmethod
+    def _device_split(plan: Sequence) -> int:
+        return next((i for i, st in enumerate(plan)
+                     if st.kind == "device"), len(plan))
+
+    def _execute_remote(self, sources: Sequence, plan: Sequence
+                        ) -> Optional[Iterator[Batch]]:
+        """The decode-fleet mode (``inputsvc/``): the host prefix runs
+        on remote DecodeServers, ``inputsvc_workers`` of them at most,
+        with an ordered re-merge; None when no remote stream can run
+        (the caller takes the local paths)."""
+        from sparkdl_tpu_torch.inputsvc.client import RemotePipeline
+        width = max(1, int(self.inputsvc_workers))
+        dsplit = self._device_split(plan)
+        stream = RemotePipeline(self.inputsvc_endpoints[:width]).stream(
+            sources, plan[:dsplit], self)
+        if stream is None:
+            return None
+        return self._stream_tail(stream, plan[dsplit:])
+
+    def _execute_pipelined(self, sources: Sequence, plan: Sequence
+                           ) -> Optional[Iterator[Batch]]:
+        """The pooled mode (``data/pipeline.py``): the host prefix runs
+        per partition on the worker pool; None when the pool resolves
+        to serial."""
+        from sparkdl_tpu_torch.data import pipeline as host_pipeline
+        workers = host_pipeline.effective_workers(
+            int(self.pipeline_workers), self.pipeline_mode)
+        if workers < 2:
+            return None
+        dsplit = self._device_split(plan)
+        stream = self._host_pipeline().stream(sources, plan[:dsplit],
+                                              self, workers)
+        return self._stream_tail(stream, plan[dsplit:])
 
     def _execute_indexed(self, sources: Sequence, plan: Sequence,
                          inflight_box: Optional[list] = None
@@ -391,6 +535,10 @@ class LocalEngine:
 
     def shutdown(self):
         self._pool.shutdown(wait=False, cancel_futures=True)
+        with self._pipeline_lock:
+            pipeline, self._pipeline = self._pipeline, None
+        if pipeline is not None:
+            pipeline.shutdown()
 
 
 def _quiesce(futures) -> None:

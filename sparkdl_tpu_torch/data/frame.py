@@ -10,6 +10,13 @@ was given one) when the frame is collected. There is no pyarrow: strings
 and image structs are object arrays, tensor columns are ``[N, *shape]``
 arrays. A frame's "schema" is a zero-row prototype batch: the column
 names in order, each an empty array of the column's dtype and row shape.
+
+The sources and stages the frame builds itself are module-level
+callables (small frozen dataclasses with ``__call__``), not closures, so
+a plan ships to the host pipeline's worker processes and to a decode
+fleet with the standard library's ``pickle``; a user's own lambda
+in ``map_batches`` stays as given, and the pipeline then takes its
+counted thread fallback.
 """
 
 from __future__ import annotations
@@ -96,6 +103,44 @@ class Source:
     effectful: bool = False
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class ConstantLoad:
+    """A source's ``load`` that returns one batch held in memory."""
+    batch: Batch
+
+    def __call__(self) -> Batch:
+        return self.batch
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FilterRows:
+    """The ``filter`` stage: keeps the rows where ``predicate(batch)``,
+    a bool mask, holds."""
+    predicate: Callable[[Batch], np.ndarray]
+
+    def __call__(self, batch: Batch) -> Batch:
+        mask = np.asarray(self.predicate(batch), dtype=bool)
+        return {k: v[mask] for k, v in batch.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class SelectColumns:
+    """The ``select`` stage: these columns, in this order."""
+    cols: tuple
+
+    def __call__(self, batch: Batch) -> Batch:
+        return {c: column(batch, c) for c in self.cols}
+
+
+@dataclasses.dataclass(frozen=True)
+class DropColumns:
+    """The ``drop`` stage: every column but these."""
+    cols: frozenset
+
+    def __call__(self, batch: Batch) -> Batch:
+        return {k: v for k, v in batch.items() if k not in self.cols}
+
+
 def column(batch: Batch, name: str) -> np.ndarray:
     """A batch's column by name, with an error that lists the columns."""
     if name not in batch:
@@ -164,7 +209,7 @@ class DataFrame:
         sources = []
         for lo, hi in zip(bounds[:-1], bounds[1:]):
             part = {k: v[lo:hi] for k, v in columns.items()}
-            sources.append(Source(lambda part=part: part, int(hi - lo),
+            sources.append(Source(ConstantLoad(part), int(hi - lo),
                                   schema_hint=hint))
         return DataFrame(sources, engine=engine)
 
@@ -195,27 +240,16 @@ class DataFrame:
     def filter(self, predicate: Callable[[Batch], np.ndarray]
                ) -> "DataFrame":
         """Keep the rows where ``predicate(batch)`` (a bool mask) holds."""
-        def _stage(batch: Batch) -> Batch:
-            mask = np.asarray(predicate(batch), dtype=bool)
-            return {k: v[mask] for k, v in batch.items()}
-
-        return self.map_batches(_stage, name="filter", row_preserving=False)
+        return self.map_batches(FilterRows(predicate), name="filter",
+                                row_preserving=False)
 
     def select(self, *cols: str) -> "DataFrame":
-        cols = list(cols)
-
-        def _stage(batch: Batch) -> Batch:
-            return {c: column(batch, c) for c in cols}
-
-        return self.map_batches(_stage, name=f"select({','.join(cols)})")
+        return self.map_batches(SelectColumns(tuple(cols)),
+                                name=f"select({','.join(cols)})")
 
     def drop(self, *cols: str) -> "DataFrame":
-        to_drop = set(cols)
-
-        def _stage(batch: Batch) -> Batch:
-            return {k: v for k, v in batch.items() if k not in to_drop}
-
-        return self.map_batches(_stage, name=f"drop({','.join(cols)})")
+        return self.map_batches(DropColumns(frozenset(cols)),
+                                name=f"drop({','.join(cols)})")
 
     def with_partition_order(self, indices: Sequence[int]) -> "DataFrame":
         """A frame over the given subset or permutation of this frame's
@@ -320,6 +354,27 @@ class DataFrame:
         out._schema = self.schema
         return out
 
+    def snapshot(self, root: str, fingerprint: str = "",
+                 decode_key: Optional[str] = None) -> "DataFrame":
+        """A frame backed by the content-addressed snapshot store
+        (``inputsvc/snapshot.py``): each partition's first load runs
+        this frame's plan and writes a validated chunk under ``root``;
+        later loads (the next epoch, another run sharing ``root``) read
+        the chunk back. The store key hashes ``fingerprint`` (the
+        corpus' identity), ``decode_key`` (the decode configuration; by
+        default the plan's stage names) and the format version, so a
+        change of any lands in a fresh store. A corrupt, truncated or
+        missing chunk is decoded again."""
+        from sparkdl_tpu_torch.inputsvc.snapshot import snapshot_sources
+        out = DataFrame(
+            snapshot_sources(self._sources, list(self._plan), self.schema,
+                             root, fingerprint, decode_key),
+            engine=self._engine)
+        # the snapshot frame's load is the plan: probing it would decode
+        # and write a whole partition to answer a schema question
+        out._schema = self.schema
+        return out
+
     # -- introspection ------------------------------------------------------
 
     @property
@@ -379,6 +434,23 @@ class DataFrame:
         batch = self.collect()
         return [{k: v[i] for k, v in batch.items()}
                 for i in range(num_rows(batch))]
+
+    def take(self, n: int) -> List[dict]:
+        """The first ``n`` rows; the stream stops as soon as they are
+        in (the engine cancels or drains what is still in flight)."""
+        out: List[dict] = []
+        stream = self.stream()
+        try:
+            for b in stream:
+                out += [{k: v[i] for k, v in b.items()}
+                        for i in range(num_rows(b))]
+                if len(out) >= n:
+                    break
+        finally:
+            close = getattr(stream, "close", None)
+            if close is not None:
+                close()
+        return out[:n]
 
     def count(self) -> int:
         known = self.known_count()

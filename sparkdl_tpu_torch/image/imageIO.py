@@ -17,11 +17,18 @@ from __future__ import annotations
 import glob
 import io
 import os
+import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from sparkdl_tpu_torch.data.frame import DataFrame, Source, column, to_column
+from sparkdl_tpu_torch.data.frame import (
+    ConstantLoad,
+    DataFrame,
+    Source,
+    column,
+    to_column,
+)
 
 ocvTypes = {
     "Undefined": -1,
@@ -107,6 +114,20 @@ def listImageFiles(path: str) -> List[str]:
             and f.lower().endswith(_SUPPORTED_EXTENSIONS)]
 
 
+@dataclasses.dataclass(frozen=True)
+class ReadFiles:
+    """A ``filesToDF`` partition's ``load``: these files' bytes."""
+    paths: tuple
+
+    def __call__(self):
+        datas = []
+        for p in self.paths:
+            with open(p, "rb") as f:
+                datas.append(f.read())
+        return {"filePath": to_column([str(p) for p in self.paths]),
+                "fileData": to_column(datas)}
+
+
 def filesToDF(paths: Sequence[str], numPartitions: int = 8,
               engine=None) -> DataFrame:
     """File paths → DataFrame[filePath, fileData], read lazily per
@@ -115,22 +136,27 @@ def filesToDF(paths: Sequence[str], numPartitions: int = 8,
     numPartitions = max(1, min(numPartitions, max(1, len(paths))))
     chunks = [c for c in np.array_split(np.asarray(paths, dtype=object),
                                         numPartitions) if len(c)]
-
-    def _make_load(chunk):
-        def _load():
-            datas = []
-            for p in chunk:
-                with open(p, "rb") as f:
-                    datas.append(f.read())
-            return {"filePath": to_column([str(p) for p in chunk]),
-                    "fileData": to_column(datas)}
-        return _load
-
-    sources = [Source(_make_load(c), len(c)) for c in chunks]
+    sources = [Source(ReadFiles(tuple(str(p) for p in c)), len(c))
+               for c in chunks]
     if not sources:
         empty = {"filePath": to_column([]), "fileData": to_column([])}
-        sources = [Source(lambda: empty, 0)]
+        sources = [Source(ConstantLoad(empty), 0)]
     return DataFrame(sources, engine=engine)
+
+
+def decodeImages(batch):
+    """``readImages``' decode stage: [filePath, fileData] → [filePath,
+    image struct], None where a file does not decode."""
+    paths = column(batch, "filePath")
+    structs = [_decodeImage(blob, origin=str(p))
+               for p, blob in zip(paths, column(batch, "fileData"))]
+    return {"filePath": paths, "image": to_column(structs)}
+
+
+def imageDecoded(batch) -> np.ndarray:
+    """The rows whose image decoded (``readImages``' failure filter)."""
+    return np.array([s is not None for s in column(batch, "image")],
+                    dtype=bool)
 
 
 def readImages(imageDirectory: str, numPartitions: int = 8,
@@ -142,17 +168,9 @@ def readImages(imageDirectory: str, numPartitions: int = 8,
     (``dropImageFailures``) or kept as None."""
     df = filesToDF(listImageFiles(imageDirectory),
                    numPartitions=numPartitions, engine=engine)
-
-    def _decode(batch):
-        paths = column(batch, "filePath")
-        structs = [_decodeImage(blob, origin=str(p))
-                   for p, blob in zip(paths, column(batch, "fileData"))]
-        return {"filePath": paths, "image": to_column(structs)}
-
-    df = df.map_batches(_decode, name="decodeImage")
+    df = df.map_batches(decodeImages, name="decodeImage")
     if dropImageFailures:
-        df = df.filter(lambda batch: np.array(
-            [s is not None for s in column(batch, "image")], dtype=bool))
+        df = df.filter(imageDecoded)
     return df
 
 
@@ -260,6 +278,67 @@ def yuv420ToRgb(packed: np.ndarray, height: int, width: int) -> np.ndarray:
     return np.clip(np.floor(rgb + 0.5), 0, 255).astype(np.uint8)
 
 
+@dataclasses.dataclass(frozen=True)
+class DecodeResizePack:
+    """``readImagesPacked``' stage: [filePath, fileData] → [filePath,
+    image] (uint8 rows of ``height × width × nChannels``, or of
+    ``row_bytes`` packed 4:2:0 with ``yuv``), plus ``imageOk`` when
+    failures are kept."""
+    height: int
+    width: int
+    nChannels: int
+    yuv: bool
+    row_bytes: int
+    threads: int
+    scaledDecode: bool
+    dropImageFailures: bool
+
+    def __call__(self, batch):
+        height, width, nChannels = self.height, self.width, self.nChannels
+        yuv, row_bytes, threads = self.yuv, self.row_bytes, self.threads
+        scaledDecode = self.scaledDecode
+        dropImageFailures = self.dropImageFailures
+        from sparkdl_tpu_torch import native
+        fp = column(batch, "filePath")
+        blobs = list(column(batch, "fileData"))
+        n = len(blobs)
+        out = np.zeros((n, row_bytes) if yuv
+                       else (n, height, width, nChannels), np.uint8)
+        ok = np.zeros(n, bool)
+
+        jpeg_idx = [i for i, b in enumerate(blobs) if b[:3] == _JPEG_MAGIC]
+        if jpeg_idx:
+            sel = [blobs[i] for i in jpeg_idx]
+            fused = (native.decode_resize_pack_420(
+                        sel, height, width, num_threads=threads,
+                        scaled_decode=scaledDecode)
+                     if yuv else
+                     native.decode_resize_pack(
+                        sel, height, width, nChannels, num_threads=threads,
+                        scaled_decode=scaledDecode))
+            if fused is not None:
+                packed, okm = fused
+                idx = np.asarray(jpeg_idx)[okm]
+                out[idx] = packed[okm]
+                ok[idx] = True
+        for i in np.flatnonzero(~ok):
+            arr = None
+            if scaledDecode and blobs[i][:3] == _JPEG_MAGIC:
+                arr = _draftDecodeResize(blobs[i], height, width, nChannels)
+            if arr is None:
+                s = _decodeImage(blobs[i], origin=str(fp[i]))
+                if s is None:
+                    continue
+                arr = resizeImageArray(imageStructToArray(s), height,
+                                       width, nChannels)
+            out[i] = rgbToYuv420(arr) if yuv else arr
+            ok[i] = True
+
+        if dropImageFailures:
+            return {"filePath": fp[ok], "image": out[ok]}
+        return {"filePath": fp, "image": out, "imageOk": ok}
+
+
 def readImagesPacked(imageDirectory: str, size: Tuple[int, int],
                      nChannels: int = 3, numPartitions: int = 8,
                      dropImageFailures: bool = True,
@@ -315,46 +394,8 @@ def readImagesPacked(imageDirectory: str, size: Tuple[int, int],
     else:
         threads = decodeThreads
 
-    def _stage(batch):
-        from sparkdl_tpu_torch import native
-        fp = column(batch, "filePath")
-        blobs = list(column(batch, "fileData"))
-        n = len(blobs)
-        out = np.zeros((n, row_bytes) if yuv
-                       else (n, height, width, nChannels), np.uint8)
-        ok = np.zeros(n, bool)
-
-        jpeg_idx = [i for i, b in enumerate(blobs) if b[:3] == _JPEG_MAGIC]
-        if jpeg_idx:
-            sel = [blobs[i] for i in jpeg_idx]
-            fused = (native.decode_resize_pack_420(
-                        sel, height, width, num_threads=threads,
-                        scaled_decode=scaledDecode)
-                     if yuv else
-                     native.decode_resize_pack(
-                        sel, height, width, nChannels, num_threads=threads,
-                        scaled_decode=scaledDecode))
-            if fused is not None:
-                packed, okm = fused
-                idx = np.asarray(jpeg_idx)[okm]
-                out[idx] = packed[okm]
-                ok[idx] = True
-        for i in np.flatnonzero(~ok):
-            arr = None
-            if scaledDecode and blobs[i][:3] == _JPEG_MAGIC:
-                arr = _draftDecodeResize(blobs[i], height, width, nChannels)
-            if arr is None:
-                s = _decodeImage(blobs[i], origin=str(fp[i]))
-                if s is None:
-                    continue
-                arr = resizeImageArray(imageStructToArray(s), height,
-                                       width, nChannels)
-            out[i] = rgbToYuv420(arr) if yuv else arr
-            ok[i] = True
-
-        if dropImageFailures:
-            return {"filePath": fp[ok], "image": out[ok]}
-        return {"filePath": fp, "image": out, "imageOk": ok}
-
-    return df.map_batches(_stage, name="decodeResizePack",
+    stage = DecodeResizePack(height, width, nChannels, yuv,
+                             row_bytes if yuv else 0, threads,
+                             scaledDecode, dropImageFailures)
+    return df.map_batches(stage, name="decodeResizePack",
                           row_preserving=not dropImageFailures)

@@ -2,14 +2,22 @@
 ``sparkdl_tpu/resilience/faults.py``, for the sites the port threads
 through its hot paths:
 
-========================  ==================================================
-site                      where it fires
-========================  ==================================================
-``engine.source_load``    ``LocalEngine`` partition source load
-``engine.stage_apply``    every engine stage call (pooled + stream paths)
-``ship.device_put``       per-chunk input placement in ``dispatch_chunks``
-``ship.drain``            per-batch result drain (``drain_bounded``)
-========================  ==================================================
+============================  ================================================
+site                          where it fires
+============================  ================================================
+``engine.source_load``        ``LocalEngine`` partition source load
+``engine.stage_apply``        every engine stage call (pooled + stream paths)
+``ship.device_put``           per-chunk input placement in ``dispatch_chunks``
+``ship.drain``                per-batch result drain (``drain_bounded``)
+``pipeline.worker_decode``    a pooled partition's decode, in the worker
+``pipeline.worker_death``     a pooled worker process exits on the spot
+``inputsvc.rpc``              each decode-fleet fragment RPC (client side)
+``snapshot.read``             each warm snapshot-chunk read
+============================  ================================================
+
+Sites that fire inside a pool worker process arm there only from
+``SPARKDL_TPU_FAULTS`` (a spawned worker reads the env at import; a
+programmatic :func:`inject` stays in the process that called it).
 
 Each armed site draws from its own seeded RNG and raises a typed fault
 at the configured rate.
@@ -51,6 +59,10 @@ SITES = (
     "engine.stage_apply",
     "ship.device_put",
     "ship.drain",
+    "pipeline.worker_decode",
+    "pipeline.worker_death",
+    "inputsvc.rpc",
+    "snapshot.read",
 )
 
 _KINDS = ("transient", "permanent")

@@ -88,6 +88,7 @@ import numpy as np
 import torch
 
 from sparkdl_tpu_torch.graph.function import ModelFunction
+from sparkdl_tpu_torch.obs import default_registry
 from sparkdl_tpu_torch.resilience.faults import maybe_fail
 
 # In-flight chunks before the oldest result is drained, for "deferred":
@@ -983,7 +984,11 @@ class BatchRunner:
                                      strategy, max_inflight,
                                      prefetch_depth, phases)
         batches = -(-n // batch_size)
-        self.metrics.add(n, batches, time.perf_counter() - t0,
+        elapsed = time.perf_counter() - t0
+        # the device lane's feed (the engine's host lane is
+        # engine.busy_seconds)
+        default_registry().counter("device.run_seconds").add(elapsed)
+        self.metrics.add(n, batches, elapsed,
                          bytes_staged=counters.bytes_staged,
                          bytes_copied=counters.bytes_copied,
                          transfer_wait_seconds=wait)

@@ -9,6 +9,8 @@ batch across partition boundaries."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from sparkdl_tpu_torch.data.frame import LiveBatchHint, column
@@ -27,6 +29,28 @@ from sparkdl_tpu_torch.runtime.runner import RunnerMetrics
 from sparkdl_tpu_torch.transformers import utils as tfr_utils
 
 _PACKED_COL = "__sparkdl_tpu_torch_packed__"
+
+
+@dataclasses.dataclass(frozen=True)
+class PackImages:
+    """The host stage: an image struct column → uint8 NHWC (resized on
+    the host unless the device resizes), cast to the model's input
+    dtype, appended as the packed column. It holds no model or runner,
+    so it ships to the host pipeline's worker processes."""
+    in_col: str
+    height: int
+    width: int
+    channels: int
+    resize: bool
+    in_dtype: object
+
+    def __call__(self, batch):
+        arr = tfr_utils.packImageBatch(column(batch, self.in_col),
+                                       self.height, self.width,
+                                       self.channels, resize=self.resize)
+        if np.dtype(self.in_dtype) != np.uint8:
+            arr = arr.astype(self.in_dtype)
+        return append_tensor_column(batch, _PACKED_COL, arr)
 
 
 class ImageTransformer(Transformer, HasInputCol, HasOutputCol,
@@ -76,12 +100,7 @@ class ImageTransformer(Transformer, HasInputCol, HasOutputCol,
         runner = tfr_utils.make_runner(mf, self.getBatchSize(),
                                        metrics=self.metrics)
 
-        def pack(batch):
-            arr = tfr_utils.packImageBatch(column(batch, in_col), h, w, c,
-                                           resize=src_hw is None)
-            if np.dtype(in_dtype) != np.uint8:
-                arr = arr.astype(in_dtype)
-            return append_tensor_column(batch, _PACKED_COL, arr)
+        pack = PackImages(in_col, h, w, c, src_hw is None, in_dtype)
 
         def apply(batch):
             out = runner.run({in_name: batch[_PACKED_COL]})[out_name]

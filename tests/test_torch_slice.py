@@ -135,10 +135,14 @@ def test_device_resize_rounds_like_jax():
 def test_import_closure_and_chip_smoke_without_cuda():
     """Importing the port and every submodule (the zoo's models, the
     msgpack reader, the resilience package, the engine and the runner,
-    the estimators, tuning and persistence among them), chip_smoke.py
+    the estimators, tuning and persistence, the metrics registry, the
+    host pipeline and the input service among them), chip_smoke.py
     and k2_phases.py, loads none of jax, flax, sparkdl_tpu, pyarrow, PIL,
-    msgpack or cloudpickle; and without CUDA chip_smoke.py and
-    k2_phases.py exit non-zero and print nothing on stdout."""
+    msgpack or cloudpickle; without CUDA chip_smoke.py and k2_phases.py
+    exit non-zero and print nothing on stdout; and a spawned host
+    pipeline worker and a ``DecodeServer`` subprocess, each running a
+    probe stage that returns its ``sorted(sys.modules)``, load none of
+    them either."""
     code = (
         "import contextlib, importlib, io, json, pkgutil, runpy, sys\n"
         "import sparkdl_tpu_torch\n"
@@ -165,14 +169,57 @@ def test_import_closure_and_chip_smoke_without_cuda():
         "with contextlib.redirect_stdout(out):\n"
         "    rc = smoke['main']()\n"
         "    rc_phases = phases['main']()\n"
+        # a probe stage in a module of its own, importable by a spawned
+        # pool worker (which gets this sys.path) and a DecodeServer
+        # subprocess (PYTHONPATH)
+        "import os, queue, subprocess, tempfile, threading\n"
+        "import numpy as np\n"
+        "d = tempfile.mkdtemp()\n"
+        "with open(os.path.join(d, 'closure_probe.py'), 'w') as f:\n"
+        "    f.write('import os, sys\\nimport numpy as np\\n'\n"
+        "            'def probe(batch):\\n'\n"
+        "            '    mods = np.empty(1, dtype=object)\\n'\n"
+        "            '    mods[0] = [os.getpid()] + sorted(sys.modules)\\n'\n"
+        "            '    return {\"mods\": mods}\\n')\n"
+        "sys.path.insert(0, d)\n"
+        "import closure_probe\n"
+        "from sparkdl_tpu_torch.data.engine import LocalEngine\n"
+        "from sparkdl_tpu_torch.data.frame import DataFrame\n"
+        "def probe_mods(engine):\n"
+        "    df = DataFrame.from_columns({'i': np.arange(2)}, 2, engine)\n"
+        "    try:\n"
+        "        return list(df.map_batches(closure_probe.probe)\n"
+        "                    .collect()['mods'][0])\n"
+        "    finally:\n"
+        "        engine.shutdown()\n"
+        "worker = probe_mods(LocalEngine(pipeline_workers=2,\n"
+        "                                pipeline_mode='process'))\n"
+        "env = dict(os.environ, PYTHONPATH=os.pathsep.join(\n"
+        "    [os.getcwd(), d]))\n"
+        "srv = subprocess.Popen([sys.executable, '-m',\n"
+        "                        'sparkdl_tpu_torch.inputsvc', 'serve'],\n"
+        "                       stdout=subprocess.PIPE, text=True, env=env)\n"
+        "try:\n"
+        "    lines = queue.Queue()\n"
+        "    threading.Thread(target=lambda: [lines.put(x) for x in\n"
+        "                     srv.stdout], daemon=True).start()\n"
+        "    endpoint = lines.get(timeout=60).split()[-1]\n"
+        "    server = probe_mods(LocalEngine(inputsvc_endpoints=endpoint))\n"
+        "finally:\n"
+        "    srv.terminate()\n"
+        "    srv.wait(timeout=15)\n"
+        "probes = {'worker': worker, 'server': server}\n"
         "print(json.dumps({'mods': mods, 'loaded': loaded, 'rc': rc,\n"
         "                  'rc_phases': rc_phases, 'exports': exports,\n"
-        "                  'smoke_stdout': out.getvalue()}))\n")
+        "                  'smoke_stdout': out.getvalue(), 'probes': probes,\n"
+        "                  'pid': os.getpid(), 'srv_pid': srv.pid}))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     result = json.loads(proc.stdout.strip().splitlines()[-1])
+    banned = ("jax", "flax", "sparkdl_tpu", "pyarrow", "PIL", "msgpack",
+              "cloudpickle")
     for mod in ("transformers.named_image", "transformers.tensor_transform",
                 "native", "image.imageIO", "models.msgpack", "models.resnet",
                 "models.xception", "models.vgg", "models.zoo",
@@ -180,7 +227,10 @@ def test_import_closure_and_chip_smoke_without_cuda():
                 "resilience.faults", "data.engine", "data.frame",
                 "runtime.runner", "params.pipeline", "params.tuning",
                 "params.persistence", "estimators.logistic_regression",
-                "estimators.evaluators"):
+                "estimators.evaluators", "obs", "obs.registry",
+                "data.pipeline", "data.codec", "inputsvc",
+                "inputsvc.transport", "inputsvc.server", "inputsvc.client",
+                "inputsvc.snapshot", "inputsvc.__main__"):
         assert f"sparkdl_tpu_torch.{mod}" in result["mods"]
     assert result["exports"] == sorted([
         "DataFrame", "DeepImagePredictor", "TensorTransformer",
@@ -191,6 +241,13 @@ def test_import_closure_and_chip_smoke_without_cuda():
     assert result["loaded"] == []
     assert result["rc"] != 0 and result["rc_phases"] != 0
     assert result["smoke_stdout"] == ""
+    probes = result["probes"]
+    assert probes["worker"][0] not in (result["pid"], result["srv_pid"])
+    assert probes["server"][0] == result["srv_pid"]
+    for where, mods in probes.items():
+        assert "sparkdl_tpu_torch.data.pipeline" in mods[1:], where
+        assert [m for m in mods[1:] if m.split(".")[0] in banned] == [], \
+            where
 
 
 def test_default_device_raises_without_cuda(png_dir):
