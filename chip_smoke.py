@@ -132,27 +132,63 @@ Phases, one JSON line each on stdout:
                    maxIter=100, regParam=1e-3)])`` fitted over the same
                    frame with labels ``i % 10``, then transform and
                    ``ClassificationEvaluator`` (the counted run: K1 8
-                   times in the fit's collect, once in the runner's
-                   output-shape probe, 8 in the transform);
+                   times in the fit's collect and 8 in the transform; the
+                   runner's output-shape probe is a trace that launches
+                   nothing);
                    probabilities finite and summing to 1; the same fit
                    on the CPU over the collected features within the
                    stated bounds; the fitted ``PipelineModel`` saved,
                    reloaded with ``load_model`` and transformed to the
                    same bits. The fit's seconds split into featurize and
                    LR fit, and the LR's ms a step.
-17. ``trained_predict`` — ``DeepImagePredictor(modelName="TestNet",
+17. ``graph``     — ``ModelFunction.fromList([buildSpImageConverter(299,
+                   299, scale=1/127.5, offset=-1), InceptionV3])`` (the
+                   zoo's bf16 network without its preprocess) through
+                   ``TFImageTransformer(deviceResizeFrom=(512, 512))`` over
+                   the featurize frame, counted (K1 8 times), against
+                   ``DeepImageFeaturizer``'s features within the featurize
+                   bound; ``rename_io`` and ``select_outputs`` of it on one
+                   batch, bit for bit; ``output_signature()`` of each
+                   function, which must launch no kernel and leave
+                   ``torch.cuda.memory_allocated()`` as it was.
+18. ``export``    — the headline's function exported by ``torch.export``
+                   with a symbolic batch and with a fixed batch of 64
+                   (bytes and seconds of each), loaded by
+                   ``ModelIngest.fromExport`` and run through
+                   ``TFTransformer`` over the headline frame, counted (K2
+                   8 times, K1 none), bit for bit the un-exported pass;
+                   the fixed-batch program refuses 32 rows and bytes that
+                   are no program are refused, each with ``ValueError``;
+                   a ``TensorTransformer`` holding the function saved,
+                   then loaded and run over the same rows by a fresh
+                   ``python3 -c`` process that imports only
+                   ``sparkdl_tpu_torch`` (started after the save, beside
+                   the exports and loads): K2 8 times there, the features
+                   handed back through an ``.npy`` file, bit for bit.
+19. ``udf``       — ``makeModelUDF`` of the InceptionV3 featurizer behind
+                   ``deviceResizeFrom=(512, 512)``, ``kind="image"``, then
+                   ``callUDF`` over the featurize frame, counted (K1 8
+                   times), bit for bit ``ImageTransformer``'s pass; the
+                   UDF's direct call on one batch of 64 equals those rows.
+                   Then one ``graph_phases`` line: the three phases'
+                   seconds. Nothing Keras-related runs here: the card's
+                   machine has no keras, so the Keras paths (the
+                   converter, ``KerasTransformer``,
+                   ``KerasImageFileTransformer``, ``registerKerasImageUDF``,
+                   the weight import) are checked by the CPU tests only.
+20. ``trained_predict`` — ``DeepImagePredictor(modelName="TestNet",
                    decodePredictions=True, topK=1)`` with the committed,
                    trained weights (read by the port's msgpack reader)
                    over the held-out set its provenance names: accuracy
                    at least 0.95, each decoded name the raw scores' best.
-18. ``transfer_trained`` — ``Pipeline([DeepImageFeaturizer("TestNet"),
+21. ``transfer_trained`` — ``Pipeline([DeepImageFeaturizer("TestNet"),
                    LogisticRegression()])`` on the TestNet's 4,096 train
                    images, then ``CrossValidator`` (3 folds) and
                    ``TrainValidationSplit`` over ``regParam`` {0, 1e-2} ×
                    ``maxIter`` {50, 100} on the cached featurized train
                    split: finite metrics, and held-out accuracy at least
                    0.95 after the fit and for each best model.
-19. ``logreg_scale`` — ``LogisticRegression`` alone on 262,144 × 2,048
+22. ``logreg_scale`` — ``LogisticRegression`` alone on 262,144 × 2,048
                    seeded fp32 features, 10 classes, 64 partitions:
                    full-batch for 100 steps (ms a step beside its bound:
                    the table read twice a step over HBM bandwidth), the
@@ -160,7 +196,7 @@ Phases, one JSON line each on stdout:
                    streaming epoch at batch 4096, the default budget's
                    switch to streaming (with its warning), and the card
                    against the CPU at 8,192 rows, 20 steps.
-20. ``kernels``  — each kernel's launches on its paths and pass/fail.
+23. ``kernels``  — each kernel's launches on its paths and pass/fail.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -851,7 +887,7 @@ def featurize(torch, np, smi_line, frame):
          crosscheck_rel_max_diff=rel, crosscheck_bound=BOUND_FEATURES_REL,
          crosscheck_pixels_differing=differing,
          runner=runner_fields(featurizer.metrics), card=smi_line)
-    return launches
+    return launches, feats[1]
 
 
 def predict(torch, np, smi_line, frame):
@@ -1800,8 +1836,8 @@ def transfer(torch, np, smi_line, frame):
     (512, 512)), LogisticRegression(maxIter=100, regParam=1e-3)])`` fitted
     on the card over the featurize phase's frame with labels ``i % 10``,
     then transform and ``ClassificationEvaluator``: K1 launches 8 times
-    in the fit's collect, once for the runner's output-shape probe and 8
-    times in the transform (the counted run); the
+    in the fit's collect and 8 times in the transform (the counted run;
+    the runner's output-shape probe is a trace that launches nothing); the
     same fit on the CPU over the collected features agrees within the
     stated bounds; the saved and reloaded model transforms to the same
     bits. Returns K1's launches."""
@@ -1832,12 +1868,12 @@ def transfer(torch, np, smi_line, frame):
     out = model.transform(df).collect()
     transform_s = time.perf_counter() - t1
     launches = infeed.launches
-    # one launch a batch in the fit's collect and in the transform, and
-    # one more in the fit: the memory-budget estimate reads the frame's
-    # zero-row schema, and the runner learns its empty output's shape
-    # from a one-row forward (the JAX package's runner from eval_shape)
+    # one launch a batch in the fit's collect and in the transform; the
+    # memory-budget estimate reads the frame's zero-row schema, whose
+    # empty output the runner shapes from the model's output signature,
+    # a trace that launches nothing (the JAX package's eval_shape)
     per_pass = N_IMAGES // BATCH
-    if fit_launches != per_pass + 1 or launches != 2 * per_pass + 1 \
+    if fit_launches != per_pass or launches != 2 * per_pass \
             or infeed.yuv420_launches:
         raise AssertionError(f"transfer: K1 launched {fit_launches} times "
                              f"in the fit and {launches} in all, K2 "
@@ -1871,7 +1907,7 @@ def transfer(torch, np, smi_line, frame):
     reload_equal = {k: bool(np.array_equal(again[k], out[k]))
                     for k in ("features", "probability", "prediction")}
     # the LR's own work: its fit less the collect (the featurizer's run)
-    # and the estimate (the featurizer's output-shape probe); what its
+    # and the estimate (the featurizer's output-shape trace); what its
     # timed parts leave is the host work between them (labels, one-hot)
     lr_fit_s = st["fit_s"] - st["collect_s"] - st["estimate_s"]
     st["other_s"] = lr_fit_s - st["setup_s"] - st["upload_s"] - st["train_s"]
@@ -1886,6 +1922,329 @@ def transfer(torch, np, smi_line, frame):
         raise AssertionError(f"the reloaded model's transform differs: "
                              f"{reload_equal}")
     return launches
+
+
+def signatures_launch_nothing(torch, infeed, functions):
+    """``output_signature()`` of each function: a trace under
+    ``FakeTensorMode``, which must launch no kernel and leave the card's
+    allocated memory as it was. Returns the functions' names."""
+    torch.cuda.synchronize()
+    before = (infeed.launches, infeed.yuv420_launches,
+              torch.cuda.memory_allocated())
+    for mf in functions:
+        mf.output_signature()
+    torch.cuda.synchronize()
+    after = (infeed.launches, infeed.yuv420_launches,
+             torch.cuda.memory_allocated())
+    if after != before:
+        raise AssertionError(f"output_signature launched or allocated: "
+                             f"(K1, K2, bytes) {before} -> {after}")
+    return [mf.name for mf in functions]
+
+
+def inception_net(torch, np):
+    """InceptionV3 (bf16, fp32 BN, the zoo's seeded weights) as a
+    ModelFunction of float32 NHWC images already scaled to [-1, 1]: the
+    zoo's network without its preprocess, for a converter piece to feed."""
+    from sparkdl_tpu_torch.graph import ModelFunction
+    from sparkdl_tpu_torch.models import zoo
+
+    class NHWCFeatures(torch.nn.Module):
+        def __init__(self, net):
+            super().__init__()
+            self.net = net
+
+        def forward(self, x):
+            # the zoo's layout: an NHWC batch viewed as channels_last NCHW
+            return self.net(x.permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last), features_only=True)
+
+    spec = zoo.getKerasApplicationModel("InceptionV3")
+    net = zoo.build_module(spec.module_fn, zoo.load_state_dict(spec.name),
+                           torch.device("cuda"))
+    return ModelFunction.fromSingle(
+        NHWCFeatures(net), input_shape=(299, 299, 3),
+        input_dtype=np.float32, input_name="converted",
+        output_name="features", name="InceptionV3:net")
+
+
+def graph_phase(torch, np, smi_line, frame, ref):
+    """``ModelFunction.fromList([buildSpImageConverter(299, 299, scale=
+    1/127.5, offset=-1), InceptionV3])`` through ``TFImageTransformer(
+    deviceResizeFrom=(512, 512))`` over the featurize frame (the counted
+    run: K1 8 times), against the featurizer's features ``ref``;
+    ``rename_io`` and ``select_outputs`` of it on one batch, bit for bit;
+    and the output signatures of the phase's functions, which launch
+    nothing. Returns K1's launches."""
+    from sparkdl_tpu_torch import TFImageTransformer
+    from sparkdl_tpu_torch.graph import (
+        ModelFunction,
+        buildSpImageConverter,
+        utils as tfx,
+    )
+    from sparkdl_tpu_torch.ops import infeed
+    from sparkdl_tpu_torch.transformers.utils import deviceResizeModel
+
+    imgs, rows, df, _ = frame
+    t0 = time.perf_counter()
+    converter = buildSpImageConverter(299, 299, scale=1 / 127.5,
+                                      offset=-1.0)
+    net = inception_net(torch, np)
+    mf = ModelFunction.fromList([converter, net],
+                                name="spImageConverter+InceptionV3")
+    build_s = time.perf_counter() - t0
+    transformer = TFImageTransformer(
+        inputCol="image", outputCol="features", modelFunction=mf,
+        deviceResizeFrom=(512, 512), batchSize=BATCH)
+    infeed.launches = infeed.yuv420_launches = 0
+    t0 = time.perf_counter()
+    out = transformer.transform(df).collect()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {KERNEL: infeed.launches, KERNEL_YUV420: infeed.yuv420_launches}
+    if launches != {KERNEL: N_IMAGES // BATCH, KERNEL_YUV420: 0}:
+        raise AssertionError(f"graph launches {launches}: K1 must launch "
+                             f"{N_IMAGES // BATCH} times and K2 none")
+    check_order(out, rows)
+    feats = np.asarray(out["features"])
+    if feats.shape != (N_IMAGES, FEATURES) or not np.isfinite(feats).all():
+        raise AssertionError(f"features {feats.shape}, finite="
+                             f"{np.isfinite(feats).all()}")
+    rel = rel_diff(feats, ref)
+    if not rel <= BOUND_FEATURES_REL:
+        raise AssertionError(f"composed vs DeepImageFeaturizer: relative "
+                             f"max|diff| {rel} > {BOUND_FEATURES_REL}")
+
+    # the wrappers on one batch, against the composed function itself
+    renamed = mf.rename_io({"image": "pixels"}, {"features": "emb"})
+    selected = tfx.select_outputs(mf, ["features"])
+    x = torch.from_numpy(imgs[:BATCH]).cuda()
+    wrappers = {}
+    for what, fn, in_name, out_name in (
+            ("composed", mf, "image", "features"),
+            ("rename_io", renamed, "pixels", "emb"),
+            ("select_outputs", selected, "image", "features")):
+        resized = deviceResizeModel(fn, (512, 512))
+        wrappers[what] = resized.apply({in_name: x})[out_name] \
+            .float().cpu().numpy()
+    same = {k: bool(np.array_equal(v, wrappers["composed"]))
+            for k, v in wrappers.items()}
+    functions = [converter, net, mf, renamed, selected,
+                 deviceResizeModel(mf, (512, 512))]
+    names = signatures_launch_nothing(torch, infeed, functions)
+    emit("graph", model="InceptionV3", images=N_IMAGES, batch=BATCH,
+         functions=names, launches=launches, build_s=build_s,
+         seconds=seconds, images_per_s=N_IMAGES / seconds,
+         vs_featurizer_rel_max_diff=rel,
+         vs_featurizer_bit_equal=bool(np.array_equal(feats, ref)),
+         bound=BOUND_FEATURES_REL, wrappers_bit_equal=same,
+         batch_matches_pass=bool(np.array_equal(wrappers["composed"],
+                                                feats[:BATCH])),
+         card=smi_line)
+    if not all(same.values()):
+        raise AssertionError(f"rename_io / select_outputs changed the "
+                             f"bits: {same}")
+    return launches[KERNEL]
+
+
+FRESH_PROCESS = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import numpy as np
+import sparkdl_tpu_torch
+from sparkdl_tpu_torch.ops import infeed
+stage_dir, rows_path, out_path = sys.argv[1:4]
+stage = sparkdl_tpu_torch.load_model(stage_dir)
+load_s = time.perf_counter() - t0
+packed = np.load(rows_path)
+df = sparkdl_tpu_torch.DataFrame.from_columns({"image": packed},
+                                              num_partitions=int(sys.argv[4]))
+infeed.launches = infeed.yuv420_launches = 0
+t1 = time.perf_counter()
+out = stage.transform(df).collect()
+transform_s = time.perf_counter() - t1
+np.save(out_path, np.asarray(out["features"]))
+banned = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "sparkdl_tpu", "keras"))
+print(json.dumps({"k1": infeed.launches, "k2": infeed.yuv420_launches,
+                  "import_and_load_s": load_s, "transform_s": transform_s,
+                  "banned_modules": banned}))
+"""
+
+
+def export_phase(torch, np, smi_line, head, repo):
+    """The headline's function exported with a symbolic batch and with a
+    fixed batch of 64 (bytes and seconds of each), loaded back
+    (``ModelIngest.fromExport``) and run through ``TFTransformer`` over
+    the headline frame (the counted run: K2 8 times, K1 none), bit for
+    bit the un-exported pass; the fixed-batch program refusing 32 rows
+    and bytes that are no program refused; and a ``TensorTransformer``
+    holding the function saved, then loaded by a fresh ``python3 -c``
+    process that imports only ``sparkdl_tpu_torch``, which runs the same
+    rows (K2 8 times) and hands its features back through an ``.npy``
+    file, bit for bit. The fresh process starts right after the save and
+    runs beside the exports and loads here (its start is mostly torch's
+    import); the counted run waits for it. Returns K2's launches here
+    and in the fresh process."""
+    import tempfile
+
+    from sparkdl_tpu_torch import ModelIngest, TensorTransformer, TFTransformer
+    from sparkdl_tpu_torch.ops import infeed
+
+    df, mf, ref = head
+    packed = np.asarray(df.collect()["image"])
+    sizes, seconds, blobs = {}, {}, {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(
+            repo, "sparkdl_tpu_torch", "_build")) as d:
+        stage_dir = os.path.join(d, "stage")
+        t0 = time.perf_counter()
+        TensorTransformer(modelFunction=mf, inputMapping={"image": "image"},
+                          outputMapping={"features": "features"},
+                          batchSize=BATCH).save(stage_dir)
+        seconds["save_s"] = time.perf_counter() - t0
+        saved = {f: os.path.getsize(os.path.join(stage_dir, f))
+                 for f in sorted(os.listdir(stage_dir))}
+        rows_path = os.path.join(d, "rows.npy")
+        out_path = os.path.join(d, "features.npy")
+        np.save(rows_path, packed)
+        t_fresh = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, "-c", FRESH_PROCESS, stage_dir, rows_path,
+             out_path, str(PARTITIONS)], cwd=repo, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            for what, batch in (("symbolic", None), ("fixed", BATCH)):
+                t0 = time.perf_counter()
+                blobs[what] = mf.export(batch_size=batch)
+                seconds[f"export_{what}_s"] = time.perf_counter() - t0
+                sizes[what] = len(blobs[what])
+            t0 = time.perf_counter()
+            loaded = ModelIngest.fromExport(blobs["symbolic"],
+                                            name="headline")
+            seconds["load_symbolic_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fixed = ModelIngest.fromExport(blobs["fixed"], name="headline64")
+            seconds["load_fixed_s"] = time.perf_counter() - t0
+            stdout, stderr = child.communicate(timeout=300)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        seconds["fresh_process_s"] = time.perf_counter() - t_fresh
+        if child.returncode != 0:
+            raise AssertionError(f"the fresh process failed: "
+                                 f"{stderr[-2000:]}")
+        fresh = json.loads(stdout.strip().splitlines()[-1])
+        fresh_feats = np.load(out_path)
+
+    transformer = TFTransformer(
+        modelFunction=loaded, inputMapping={"image": "image"},
+        outputMapping={"features": "features"}, batchSize=BATCH)
+    infeed.launches = infeed.yuv420_launches = 0
+    t0 = time.perf_counter()
+    out = transformer.transform(df).collect()
+    torch.cuda.synchronize()
+    seconds["exported_pass_s"] = time.perf_counter() - t0
+    launches = {KERNEL_YUV420: infeed.yuv420_launches,
+                KERNEL: infeed.launches}
+    if launches != {KERNEL_YUV420: N_IMAGES // BATCH, KERNEL: 0}:
+        raise AssertionError(f"export launches {launches}: K2 must launch "
+                             f"{N_IMAGES // BATCH} times and K1 none")
+    feats = np.asarray(out["features"])
+    exported_equal = bool(np.array_equal(feats, ref))
+
+    # the fixed batch: 64 rows run, 32 are refused with the port's
+    # ValueError
+    x = torch.from_numpy(packed[:BATCH]).cuda()
+    fixed_equal = bool(np.array_equal(
+        fixed.apply({"image": x})["features"].cpu().numpy(), ref[:BATCH]))
+    refusals = {}
+    half = f"batch_{BATCH // 2}"
+    try:
+        fixed.apply({"image": x[:BATCH // 2]})
+    except ValueError as e:
+        refusals[half] = str(e)
+    try:
+        ModelIngest.fromExport(b"\x00not a program" * 8)
+    except ValueError as e:
+        refusals["not_an_export"] = str(e)[:80]
+    if set(refusals) != {half, "not_an_export"}:
+        raise AssertionError(f"refusals {refusals}")
+    names = signatures_launch_nothing(torch, infeed, [mf, loaded, fixed])
+
+    fresh_equal = bool(np.array_equal(fresh_feats, ref))
+    diffs = {"exported": float(np.abs(feats - ref).max()),
+             "fresh_process": float(np.abs(fresh_feats - ref).max())}
+    emit("export", model="InceptionV3", source_hw=list(HEADLINE_SRC),
+         bytes=sizes, seconds=seconds, saved_files=saved,
+         launches=launches, exported_bit_equal=exported_equal,
+         fixed_batch_bit_equal=fixed_equal, refusals=refusals,
+         signature_functions=names, fresh_process=fresh,
+         fresh_process_bit_equal=fresh_equal, max_abs_diff=diffs,
+         card=smi_line)
+    if not (exported_equal and fixed_equal and fresh_equal):
+        raise AssertionError(
+            f"exported pass equal {exported_equal}, fixed batch equal "
+            f"{fixed_equal}, fresh process equal {fresh_equal}: {diffs}")
+    if (fresh["k2"], fresh["k1"]) != (N_IMAGES // BATCH, 0) or \
+            fresh["banned_modules"]:
+        raise AssertionError(f"the fresh process: {fresh}")
+    return launches[KERNEL_YUV420], fresh["k2"]
+
+
+def udf_phase(torch, np, smi_line, frame):
+    """``makeModelUDF`` of the InceptionV3 featurizer behind
+    ``deviceResizeFrom=(512, 512)`` with ``kind="image"``, then
+    ``callUDF`` over the featurize frame (the counted run: K1 8 times),
+    bit for bit ``ImageTransformer``'s pass over the same function; the
+    UDF's direct call on one batch of 64 equals those rows. Returns K1's
+    launches and the function."""
+    from sparkdl_tpu_torch import ImageTransformer
+    from sparkdl_tpu_torch.models import zoo
+    from sparkdl_tpu_torch.ops import infeed
+    from sparkdl_tpu_torch.transformers.utils import deviceResizeModel
+    from sparkdl_tpu_torch.udf import callUDF, makeModelUDF, unregisterUDF
+
+    imgs, rows, df, _ = frame
+    mf = deviceResizeModel(zoo.getModelFunction("InceptionV3"), (512, 512))
+    udf = makeModelUDF(mf, "inception_features", kind="image",
+                       batch_size=BATCH, replace=True)
+    try:
+        infeed.launches = infeed.yuv420_launches = 0
+        t0 = time.perf_counter()
+        out = callUDF("inception_features", df, "image", "features") \
+            .collect()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {KERNEL: infeed.launches,
+                    KERNEL_YUV420: infeed.yuv420_launches}
+        if launches != {KERNEL: N_IMAGES // BATCH, KERNEL_YUV420: 0}:
+            raise AssertionError(f"udf launches {launches}: K1 must launch "
+                                 f"{N_IMAGES // BATCH} times and K2 none")
+        check_order(out, rows)
+        feats = np.asarray(out["features"])
+        ref = np.asarray(ImageTransformer(
+            inputCol="image", outputCol="features", modelFunction=mf,
+            batchSize=BATCH).transform(df).collect()["features"])
+        direct = np.asarray(udf(imgs[:BATCH]))
+    finally:
+        unregisterUDF("inception_features")
+    same = bool(np.array_equal(feats, ref))
+    direct_same = bool(np.array_equal(direct, feats[:BATCH]))
+    names = signatures_launch_nothing(torch, infeed, [mf])
+    emit("udf", model="InceptionV3", images=N_IMAGES, batch=BATCH,
+         launches=launches, seconds=seconds,
+         images_per_s=N_IMAGES / seconds,
+         finite=bool(np.isfinite(feats).all()),
+         features_shape=list(feats.shape),
+         image_transformer_bit_equal=same, direct_call_bit_equal=direct_same,
+         signature_functions=names, card=smi_line)
+    if feats.shape != (N_IMAGES, FEATURES) or not np.isfinite(feats).all() \
+            or not same or not direct_same:
+        raise AssertionError(f"udf: shape {feats.shape}, equal to "
+                             f"ImageTransformer {same}, direct call "
+                             f"{direct_same}")
+    return launches[KERNEL]
 
 
 def transfer_trained(torch, np, smi_line):
@@ -2126,8 +2485,9 @@ def main():
 
     frame = rgb_frame(np)
     # K1's launches on each of its paths' counted runs
-    k1_paths = {"featurize": featurize(torch, np, smi, frame),
-                "predict": predict(torch, np, smi, frame)}
+    k1_paths = {}
+    k1_paths["featurize"], featurize_ref = featurize(torch, np, smi, frame)
+    k1_paths["predict"] = predict(torch, np, smi, frame)
     k1_paths["zoo"], zoo_ms = zoo_models(torch, np, smi, frame)
     yuv_launches, head = headline(torch, np, smi)
     runner_split(torch, np, smi, frame, zoo_ms)
@@ -2153,10 +2513,17 @@ def main():
     emit("pipeline_phases", seconds=time.perf_counter() - t0, card=smi)
     del pipe_ref
     k1_paths["transfer"] = transfer(torch, np, smi, frame)
-    del frame, head
+    # the graph toolkit, export and the UDFs
+    t0 = time.perf_counter()
+    k1_paths["graph"] = graph_phase(torch, np, smi, frame, featurize_ref)
+    yuv_export, yuv_fresh = export_phase(torch, np, smi, head, repo)
+    k1_paths["udf"] = udf_phase(torch, np, smi, frame)
+    emit("graph_phases", seconds=time.perf_counter() - t0, card=smi)
+    del frame, head, featurize_ref
     yuv_paths = {"headline": yuv_launches, "strategies": yuv_strategies,
                  "host_pipeline": yuv_pipe, "input_service": yuv_fleet,
-                 "snapshot": yuv_snapshot}
+                 "snapshot": yuv_snapshot, "export": yuv_export,
+                 "export_fresh_process": yuv_fresh}
     yuv_launches = sum(yuv_paths.values())
     trained_predict(torch, np, smi)
     transfer_trained(torch, np, smi)

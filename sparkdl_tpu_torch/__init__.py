@@ -6,13 +6,18 @@ zoo → a features or predictions column, and ``readImagesPacked`` →
 ``TensorTransformer`` over a device-resize model; the transfer-learning
 flow ``Pipeline([DeepImageFeaturizer, LogisticRegression])`` with its
 evaluators, ``CrossValidator`` / ``TrainValidationSplit`` and
-``load_model``), run by PyTorch on an NVIDIA GPU, with the JAX package's
+``load_model``; the graph toolkit, ``ModelFunction`` composed, exported by
+``torch.export`` and saved, ``ModelIngest`` / ``TFInputGraph``; the Keras
+inference paths ``KerasTransformer``, ``KerasImageFileTransformer`` and
+``registerKerasImageUDF``, whose Keras models are converted to torch
+modules), run by PyTorch on an NVIDIA GPU, with the JAX package's
 hand-written TPU kernel and its
 4:2:0 resize-and-colour op rewritten as CUDA kernels
 (``ops/csrc/resize_normalize.cu``, ``ops/csrc/yuv420_resize_normalize.cu``).
 
 The port imports torch, numpy and the standard library only: nothing of
-JAX, flax, pyarrow or ``sparkdl_tpu``. Every entry point that touches a
+JAX, flax, pyarrow or ``sparkdl_tpu``; keras only inside the functions
+that read a Keras model. Every entry point that touches a
 device takes ``device=None``, which means ``"cuda"``; without a card it
 raises instead of falling back to the CPU, so a CPU run is always asked
 for (``device="cpu"``).
@@ -36,6 +41,20 @@ _EXPORTS = {
                          "ImageTransformer"),
     "TensorTransformer": ("sparkdl_tpu_torch.transformers.tensor_transform",
                           "TensorTransformer"),
+    # reference-era aliases (TFImageTransformer / TFTransformer)
+    "TFImageTransformer": ("sparkdl_tpu_torch.transformers.image_transform",
+                           "ImageTransformer"),
+    "TFTransformer": ("sparkdl_tpu_torch.transformers.tensor_transform",
+                      "TensorTransformer"),
+    "KerasImageFileTransformer": (
+        "sparkdl_tpu_torch.transformers.keras_image",
+        "KerasImageFileTransformer"),
+    "KerasTransformer": ("sparkdl_tpu_torch.transformers.keras_tensor",
+                         "KerasTransformer"),
+    "ModelIngest": ("sparkdl_tpu_torch.graph.ingest", "ModelIngest"),
+    "TFInputGraph": ("sparkdl_tpu_torch.graph.ingest", "TFInputGraph"),
+    "registerKerasImageUDF": ("sparkdl_tpu_torch.udf.keras_image_model",
+                              "registerKerasImageUDF"),
     "DataFrame": ("sparkdl_tpu_torch.data.frame", "DataFrame"),
     "LogisticRegression": ("sparkdl_tpu_torch.estimators.logistic_regression",
                            "LogisticRegression"),

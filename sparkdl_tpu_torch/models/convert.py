@@ -94,5 +94,5 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
                         f"unexpected kernel rank {arr.ndim} at "
                         f"{'/'.join(path)}")
             torch_key = ".".join(modules + [_LEAF_NAMES[key]])
-            out[torch_key] = torch.tensor(arr)   # a contiguous copy
+            out[torch_key] = torch.tensor(np.ascontiguousarray(arr))
     return out

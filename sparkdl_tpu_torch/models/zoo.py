@@ -40,18 +40,16 @@ def _inception_preprocess(x: torch.Tensor) -> torch.Tensor:
 _CAFFE_MEAN = (103.939, 116.779, 123.68)  # BGR means
 
 
-@functools.lru_cache(maxsize=None)   # one small tensor per device
-def _caffe_mean(device: torch.device) -> torch.Tensor:
-    # made once: a copy from the host each batch would wait for the
-    # device's queue
-    return torch.tensor(_CAFFE_MEAN, dtype=torch.float32,
-                        device=device).view(1, 3, 1, 1)
-
-
-def _caffe_preprocess(x: torch.Tensor) -> torch.Tensor:
+def _caffe_preprocess(x: torch.Tensor,
+                      mean: Optional[torch.Tensor] = None) -> torch.Tensor:
     """uint8 RGB NCHW → BGR float32, ImageNet-mean-subtracted (VGG and
-    ResNet50)."""
-    return torch.flip(x.to(torch.float32), [1]) - _caffe_mean(x.device)
+    ResNet50). ``ZooModel`` passes the means as a buffer on the model's
+    device (a copy from the host each batch would wait for the device's
+    queue, and a tensor made inside a trace would be the trace's)."""
+    if mean is None:
+        mean = torch.tensor(_CAFFE_MEAN, dtype=torch.float32,
+                            device=x.device).view(1, 3, 1, 1)
+    return torch.flip(x.to(torch.float32), [1]) - mean
 
 
 def _testnet_preprocess(x: torch.Tensor) -> torch.Tensor:
@@ -245,6 +243,12 @@ class ZooModel(nn.Module):
         self.preprocess = spec.preprocess
         self.net = net
         self.featurize = featurize
+        if spec.preprocess is _caffe_preprocess:
+            self.register_buffer("caffe_mean", torch.tensor(
+                _CAFFE_MEAN, dtype=torch.float32).view(1, 3, 1, 1),
+                persistent=False)
+        else:
+            self.caffe_mean = None
 
     def forward(self, inputs: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
@@ -253,7 +257,8 @@ class ZooModel(nn.Module):
         # keeps cuDNN on one (channels_last) algorithm family
         x = inputs["image"].permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        x = self.preprocess(x)
+        x = (self.preprocess(x) if self.caffe_mean is None
+             else _caffe_preprocess(x, self.caffe_mean))
         out = self.net(x, features_only=self.featurize)
         if self.featurize:
             return {"features": out}

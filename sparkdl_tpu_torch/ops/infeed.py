@@ -22,10 +22,15 @@ Two implementations of the same function:
   shared memory per geometry). Built with nvcc at first use
   (``ops/_build.py``) and bound with ctypes.
 
-:func:`fused_resize_normalize` picks by the input's device: a CPU tensor
-goes to the plain version, a CUDA tensor to the kernel, which launches
-or raises. ``launches`` counts the kernel's launches, so a run can show
-that its main path went through the kernel.
+:func:`fused_resize_normalize` calls the registered op
+``torch.ops.sparkdl_tpu_torch.resize_normalize`` on every device. The op's
+CPU implementation is the plain version, its CUDA implementation the
+kernel, which launches or raises, and its fake implementation gives the
+output's shape and dtype from the input's (which may be symbolic) without
+launching anything, so ``torch.export`` and ``FakeTensorMode`` trace
+through it and an exported program holds the op by name. ``launches``
+counts the kernel's launches, so a run can show that its main path went
+through the kernel.
 """
 
 from __future__ import annotations
@@ -316,17 +321,40 @@ def fused_resize_normalize(x: torch.Tensor, out_hw: Tuple[int, int],
     """uint8/float32 [N, H, W, C] → float32 [N, h, w, C]: anti-aliased
     bilinear resize then ``y * scale + offset``.
 
-    A CPU tensor goes to :func:`fused_resize_normalize_plain`. A CUDA
-    tensor goes to the CUDA kernel on the current stream, one launch per
-    call, with bands of up to ``ROWS`` output rows; the wrapper raises on
+    Goes through the registered op ``sparkdl_tpu_torch::resize_normalize``:
+    a CPU tensor to :func:`fused_resize_normalize_plain`, a CUDA tensor to
+    the CUDA kernel on the current stream, one launch per call, with bands
+    of up to ``ROWS`` output rows, and a fake tensor (``torch.export``,
+    ``FakeTensorMode``) to the output's shape alone. The kernel raises on
     a non-contiguous input, a geometry the plan cannot tile, or a refused
     launch, and never falls back to the plain version."""
     h, w = _check_input(x, out_hw)
-    if x.device.type == "cpu":
-        return fused_resize_normalize_plain(x, (h, w), scale, offset)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
+    return torch.ops.sparkdl_tpu_torch.resize_normalize(
+        x, h, w, float(scale), float(offset))
+
+
+# K1 as a registered op: the geometry goes in as ints and the plan is
+# built inside the real implementations
+@torch.library.custom_op(
+    "sparkdl_tpu_torch::resize_normalize", mutates_args=(),
+    device_types="cpu",
+    schema="(Tensor x, int h, int w, float scale, float offset) -> Tensor")
+def _resize_normalize_op(x, h, w, scale, offset):
+    # contiguous, as the kernel's output and the fake's are
+    return fused_resize_normalize_plain(x, (h, w), scale,
+                                        offset).contiguous()
+
+
+@_resize_normalize_op.register_kernel("cuda")
+def _resize_normalize_cuda(x, h, w, scale, offset):
     return _launch(x, h, w, scale, offset, ROWS)
+
+
+@_resize_normalize_op.register_fake
+def _resize_normalize_fake(x, h, w, scale, offset):
+    return x.new_empty((x.shape[0], h, w, x.shape[3]), dtype=torch.float32)
 
 
 def _launch(x: torch.Tensor, h: int, w: int, scale: float, offset: float,
@@ -748,19 +776,40 @@ def fused_yuv420_resize_normalize(
     ``y * scale + offset``; with ``out_dtype=torch.uint8`` that is rounded
     half to even and clipped, in the same pass.
 
-    A CPU tensor goes to :func:`fused_yuv420_resize_normalize_plain`. A
-    CUDA tensor goes to the CUDA kernel K2 on the current stream, one
-    launch per call; the wrapper raises on a non-contiguous input, a
-    geometry the plan cannot lay out, or a refused launch, and never
-    falls back to the plain version."""
+    Goes through the registered op
+    ``sparkdl_tpu_torch::yuv420_resize_normalize``: a CPU tensor to
+    :func:`fused_yuv420_resize_normalize_plain`, a CUDA tensor to the CUDA
+    kernel K2 on the current stream, one launch per call, and a fake
+    tensor to the output's shape alone. The kernel raises on a
+    non-contiguous input, a geometry the plan cannot lay out, or a refused
+    launch, and never falls back to the plain version."""
     h, w = _check_yuv420(x, out_hw, out_dtype)
-    if x.device.type == "cpu":
-        return fused_yuv420_resize_normalize_plain(x, src_hw, (h, w), scale,
-                                                   offset, out_dtype)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    return _launch_yuv420(x, *_yuv420_src(x, src_hw), h, w, scale, offset,
-                          out_dtype)
+    H, W = _yuv420_src(x, src_hw)
+    return torch.ops.sparkdl_tpu_torch.yuv420_resize_normalize(
+        x, H, W, h, w, float(scale), float(offset), out_dtype)
+
+
+# K2 as a registered op, as K1 above
+@torch.library.custom_op(
+    "sparkdl_tpu_torch::yuv420_resize_normalize", mutates_args=(),
+    device_types="cpu",
+    schema="(Tensor x, int H, int W, int h, int w, float scale, "
+           "float offset, ScalarType out_dtype) -> Tensor")
+def _yuv420_resize_normalize_op(x, H, W, h, w, scale, offset, out_dtype):
+    return fused_yuv420_resize_normalize_plain(x, (H, W), (h, w), scale,
+                                               offset, out_dtype).contiguous()
+
+
+@_yuv420_resize_normalize_op.register_kernel("cuda")
+def _yuv420_resize_normalize_cuda(x, H, W, h, w, scale, offset, out_dtype):
+    return _launch_yuv420(x, H, W, h, w, scale, offset, out_dtype)
+
+
+@_yuv420_resize_normalize_op.register_fake
+def _yuv420_resize_normalize_fake(x, H, W, h, w, scale, offset, out_dtype):
+    return x.new_empty((x.shape[0], h, w, 3), dtype=out_dtype)
 
 
 _queues = {}

@@ -29,6 +29,7 @@ from sparkdl_tpu_torch.params.shared import (  # noqa: F401
     HasDeviceResizeFrom,
     HasInputCol,
     HasInputMapping,
+    HasKerasModel,
     HasLabelCol,
     HasModelFunction,
     HasOutputCol,
@@ -36,3 +37,4 @@ from sparkdl_tpu_torch.params.shared import (  # noqa: F401
     HasOutputMode,
     HasTFHParams,
 )
+from sparkdl_tpu_torch.params.image import CanLoadImage  # noqa: F401

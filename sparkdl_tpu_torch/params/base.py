@@ -269,6 +269,12 @@ class TypeConverters:
         return str(torch.device(value))
 
     @staticmethod
+    def toCallable(value):
+        if callable(value):
+            return value
+        raise TypeError(f"expected callable, got {type(value).__name__}")
+
+    @staticmethod
     def toStringDict(value) -> dict:
         """{str: str} mapping, from a dict or a list of pairs."""
         if isinstance(value, dict):

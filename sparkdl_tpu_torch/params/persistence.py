@@ -7,15 +7,20 @@ directory:
   its defaults and its non-Param fitted state (coefficients, histories),
   each as a typed descriptor;
 * an ``.npy`` sidecar for each numpy array;
+* a ``.pt2`` sidecar for each ``ModelFunction``: its export
+  (``ModelFunction.export``, the bytes ``torch.export.save`` writes, with
+  the weights baked in and a fixed batch kept), loaded back by
+  ``ModelFunction.deserialize`` onto the kind of device it was saved
+  from, as the JAX package saves its StableHLO export;
+* a module-level callable (an ``imageLoader``) as its import path;
 * one subdirectory per child stage (PipelineModel stages,
   CrossValidatorModel's bestModel), each a saved stage itself.
 
-Values are plain JSON or numpy arrays; anything else (a
-``ModelFunction``, a callable) raises ``TypeError`` naming its key. The
-JAX package pickles those; this package saves no pickle, and saving a
-model function waits for an export format (``torch.export``).
+Anything else (a lambda or local function, an object) raises
+``TypeError`` naming its key: the JAX package pickles such values with
+cloudpickle, and this package writes no pickle.
 
-``load_model`` resolves the class by import path, only under
+``load_model`` resolves classes and callables by import path, only under
 ``sparkdl_tpu_torch`` unless ``trusted_modules`` says otherwise, and
 rebuilds the stage with ``cls._from_saved(params, extra, children)``.
 """
@@ -45,26 +50,74 @@ def _is_plain_json(value) -> bool:
 
 
 def _encode_value(key: str, value, directory: str) -> dict:
-    """Value → JSON descriptor (and an ``.npy`` sidecar for arrays)."""
+    """Value → JSON descriptor (and a sidecar for arrays and model
+    functions)."""
+    from sparkdl_tpu_torch.graph.function import ModelFunction
     if _is_plain_json(value):
         return {"kind": "json", "value": value}
     if isinstance(value, np.ndarray) and value.dtype != object:
         fname = f"{key}.npy"
         np.save(os.path.join(directory, fname), value)
         return {"kind": "ndarray", "file": fname}
+    if isinstance(value, ModelFunction):
+        try:
+            blob = value.export(batch_size=value._fixed_batch)
+        except Exception as e:
+            raise TypeError(
+                f"cannot save {key!r}: ModelFunction {value.name!r} does "
+                f"not export with torch.export ({type(e).__name__}: "
+                f"{str(e)[:200]}); rebuild the stage with it after "
+                "loading") from e
+        fname = f"{key}.pt2"
+        with open(os.path.join(directory, fname), "wb") as f:
+            f.write(blob)
+        # the batch is read back from the program
+        return {"kind": "model_fn", "file": fname, "name": value.name,
+                "device": value.device.type}
+    qualname = getattr(value, "__qualname__", "")
+    if callable(value) and getattr(value, "__module__", None) and \
+            qualname and "<" not in qualname:
+        return {"kind": "callable", "module": value.__module__,
+                "qualname": qualname}
     raise TypeError(
         f"cannot save {key!r}: a {type(value).__name__} is neither plain "
-        "JSON nor a numeric numpy array. Model functions and callables "
-        "are not saved by this package (a ModelFunction waits for a "
-        "torch.export format); rebuild the stage with it after loading")
+        "JSON, a numeric numpy array, a ModelFunction nor a module-level "
+        "callable (a lambda or a local function has no import path, and "
+        "this package writes no pickle); rebuild the stage with it after "
+        "loading")
 
 
-def _decode_value(desc: dict, directory: str):
+def _trusted(module: str, allowed) -> bool:
+    return "*" in allowed or any(
+        module == m or module.startswith(m + ".") for m in allowed)
+
+
+def _resolve(module: str, qualname: str):
+    obj = importlib.import_module(module)
+    for part in qualname.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _decode_value(desc: dict, directory: str, allowed):
     kind = desc["kind"]
     if kind == "json":
         return desc["value"]
     if kind == "ndarray":
         return np.load(os.path.join(directory, desc["file"]))
+    if kind == "model_fn":
+        from sparkdl_tpu_torch.graph.function import ModelFunction
+        with open(os.path.join(directory, desc["file"]), "rb") as f:
+            return ModelFunction.deserialize(f.read(), name=desc["name"],
+                                             device=desc["device"])
+    if kind == "callable":
+        if not _trusted(desc["module"], allowed):
+            raise ValueError(
+                f"{directory} names the callable "
+                f"{desc['module']}.{desc['qualname']}, outside the trusted "
+                f"module prefixes {allowed}; pass trusted_modules=[...] to "
+                "load_model if you trust this artifact")
+        return _resolve(desc["module"], desc["qualname"])
     raise ValueError(f"unknown descriptor kind {kind!r}")
 
 
@@ -118,19 +171,16 @@ def load_stage(path: str, *, trusted_modules: Optional[Iterable[str]] = None):
             f"(format={meta.get('format')!r})")
     module, _, qualname = meta["class"].rpartition(".")
     allowed = ["sparkdl_tpu_torch"] + sorted(trusted_modules or [])
-    if "*" not in allowed and not any(
-            module == m or module.startswith(m + ".") for m in allowed):
+    if not _trusted(module, allowed):
         raise ValueError(
             f"{path} declares stage class {meta['class']!r}, outside "
             f"the trusted module prefixes {allowed}; pass "
             "trusted_modules=[...] to load_model if you trust this "
             "artifact")
-    cls = importlib.import_module(module)
-    for part in qualname.split("."):
-        cls = getattr(cls, part)
-    params = {name: _decode_value(d, path)
+    cls = _resolve(module, qualname)
+    params = {name: _decode_value(d, path, allowed)
               for name, d in meta["params"].items()}
-    extra = {name: _decode_value(d, path)
+    extra = {name: _decode_value(d, path, allowed)
              for name, d in meta["extra"].items()}
     children = {name: load_stage(os.path.join(path, name),
                                  trusted_modules=trusted_modules)
@@ -140,7 +190,7 @@ def load_stage(path: str, *, trusted_modules: Optional[Iterable[str]] = None):
     for name, d in meta.get("defaults", {}).items():
         if stage.hasParam(name):
             stage._defaultParamMap[stage.getParam(name)] = \
-                _decode_value(d, path)
+                _decode_value(d, path, allowed)
     # keyword_only constructors set every argument explicitly, which
     # would shadow the restored defaults: clear the explicit entries the
     # save did not record as explicit, where a default still resolves

@@ -167,3 +167,28 @@ class HasTFHParams(Params):
 
     def getTFHParams(self) -> dict:
         return self.getOrDefault("tfHParams") or {}
+
+
+class HasKerasModel(Params):
+    """Path to a user Keras model file (.h5 / .keras), read by the
+    installed keras and converted to a torch module
+    (``graph/ingest.py::ModelIngest.fromKerasFile``)."""
+
+    modelFile = Param("HasKerasModel", "modelFile",
+                      "path to Keras model file (.h5 or .keras)",
+                      TypeConverters.toString)
+    kerasFitParams = Param("HasKerasModel", "kerasFitParams",
+                           "kwargs dict for the training loop "
+                           "(epochs, batch_size, ...)")
+
+    def setModelFile(self, value: str):
+        return self._set(modelFile=value)
+
+    def getModelFile(self) -> str:
+        return self.getOrDefault("modelFile")
+
+    def setKerasFitParams(self, value: dict):
+        return self._set(kerasFitParams=dict(value))
+
+    def getKerasFitParams(self) -> dict:
+        return dict(self.getOrDefault("kerasFitParams"))

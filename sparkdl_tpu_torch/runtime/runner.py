@@ -1031,14 +1031,15 @@ class BatchRunner:
         return sink.result(), sink.transfer_wait
 
     def _empty_outputs(self) -> Dict[str, np.ndarray]:
-        """Zero-row outputs with the per-row shapes of a one-row probe
-        (made once per runner)."""
+        """Zero-row outputs with the per-row shapes and dtypes of the
+        model's output signature (made once per runner): a trace under
+        ``FakeTensorMode`` that launches nothing, as the JAX runner's
+        ``eval_shape``."""
         if self._empty is None:
-            probe = {k: np.zeros((1,) + tuple(shape), dtype)
-                     for k, (shape, dtype)
-                     in self.model_fn.input_signature.items()}
-            out = self.model_fn(probe)
-            self._empty = {k: v[:0] for k, v in out.items()}
+            self._empty = {
+                k: np.zeros((0,) + tuple(shape), dtype)
+                for k, (shape, dtype)
+                in self.model_fn.output_signature().items()}
         return dict(self._empty)
 
 

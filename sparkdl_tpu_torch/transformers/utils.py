@@ -1,6 +1,6 @@
 """Shared transformer helpers — counterpart of
 ``sparkdl_tpu/transformers/utils.py`` (image packing, model-output
-columns as vectors or image structs, the payload-to-model reshape guard,
+columns as vectors or image structs, the payload-to-model reshape guards,
 runner selection, and the device-resize model wrapper)."""
 
 from __future__ import annotations
@@ -117,6 +117,18 @@ def reshapeRows(arr, shape, dtype, describe_mismatch) -> np.ndarray:
                                                expect))
         arr = arr.reshape((arr.shape[0],) + tuple(shape))
     return arr.astype(dtype, copy=False)
+
+
+def reshapeLoadedRows(arr, shape, dtype, model_name: str) -> np.ndarray:
+    """:func:`reshapeRows` with the imageLoader seam's message (the Keras
+    image transformer)."""
+    return reshapeRows(
+        arr, shape, dtype,
+        lambda row_shape, got, expect: (
+            f"imageLoader rows carry shape {row_shape} ({got} "
+            f"elements) but model {model_name!r} expects input shape "
+            f"{tuple(shape)} ({expect} elements); make the loader "
+            "emit the model's input size"))
 
 
 def make_runner(model_fn, batch_size: int, metrics=None):

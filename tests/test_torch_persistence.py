@@ -1,14 +1,19 @@
 """Save and load of the port's stages: a fitted ``LogisticRegressionModel``,
 an unfitted ``Pipeline``, a fitted ``PipelineModel`` with the committed
 TestNet featurizer, and a ``CrossValidatorModel``, each reloaded to the
-same transform bits; and the refusals (overwrite, a directory that is no
-saved stage, a class outside the trusted modules, a value that is
-neither JSON nor an array)."""
+same transform bits; a ``TensorTransformer`` / ``ImageTransformer``
+holding a ``ModelFunction`` (saved as its ``torch.export`` program) and a
+module-level ``imageLoader`` (saved as its import path), reloaded to the
+same bits with no pickle written; and the refusals (overwrite, a
+directory that is no saved stage, a class or callable outside the
+trusted modules, a function that does not export, a lambda)."""
 
 import json
+import os
 
 import numpy as np
 import pytest
+import torch
 
 import sparkdl_tpu_torch
 from sparkdl_tpu_torch import DataFrame, LogisticRegression, load_model
@@ -162,15 +167,128 @@ def test_class_resolution_is_restricted(tmp_path):
         load_model(str(tmp_path / "c"))
 
 
-def test_model_function_refuses_to_save(tmp_path):
-    import torch
+class _HostOnly(torch.nn.Module):
+    """A module that leaves torch for numpy, which ``torch.export``
+    cannot trace."""
 
+    def forward(self, inputs):
+        return {"x": torch.from_numpy(inputs["x"].numpy() * 2)}
+
+
+def test_model_function_refuses_to_save(tmp_path):
+    """A ModelFunction is saved as its ``torch.export`` program; one that
+    does not export is refused with ``TypeError`` naming its key, and
+    nothing of it is left to load."""
     from sparkdl_tpu_torch import TensorTransformer
     from sparkdl_tpu_torch.graph.function import ModelFunction
-    mf = ModelFunction(torch.nn.Identity(), {"x": ((2,), np.float32)},
+    mf = ModelFunction(_HostOnly(), {"x": ((2,), np.float32)},
                        ["x"], device="cpu")
     tt = TensorTransformer(modelFunction=mf, inputMapping={"a": "x"},
                            outputMapping={"x": "b"})
     with pytest.raises(TypeError, match="param_modelFunction") as err:
         tt.save(str(tmp_path / "tt"))
     assert "torch.export" in str(err.value)
+    assert not (tmp_path / "tt" / "metadata.json").exists()
+
+
+def _no_pickle(path):
+    names = [os.path.join(d, f) for d, _, files in os.walk(path)
+             for f in files]
+    assert names and not [n for n in names
+                          if n.endswith((".pkl", ".pickle"))], names
+    return names
+
+
+@pytest.mark.parametrize("fmt", ["rgb", "yuv420"])
+def test_tensor_transformer_with_device_resize_model_round_trip(
+        tmp_path, empty_caches, fmt):
+    """A ``TensorTransformer`` holding ``deviceResizeModel(TestNet)`` saves
+    its function as a ``torch.export`` program and reloads to the same
+    bits, with no pickle written."""
+    from sparkdl_tpu_torch import TensorTransformer
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.models import zoo
+    from sparkdl_tpu_torch.transformers.utils import deviceResizeModel
+    mf = deviceResizeModel(zoo.getModelFunction("TestNet", device="cpu"),
+                           (40, 40), packedFormat=fmt)
+    shape, _ = mf.input_signature["image"]
+    x = np.random.default_rng(2).integers(0, 256, (10,) + shape,
+                                          dtype=np.uint8)
+    df = DataFrame.from_columns({"image": x}, 3)
+    tt = TensorTransformer(modelFunction=mf, inputMapping={"image": "image"},
+                           outputMapping={"features": "f"}, batchSize=4)
+    tt.save(str(tmp_path / "tt"))
+    names = _no_pickle(str(tmp_path / "tt"))
+    assert any(n.endswith("param_modelFunction.pt2") for n in names)
+    back = load_model(str(tmp_path / "tt"))
+    got = back.getModelFunction()
+    assert isinstance(got, ModelFunction) and got.name == mf.name
+    assert got.device == mf.device and got.input_signature == {
+        "image": (shape, np.dtype(np.uint8))}
+    np.testing.assert_array_equal(back.transform(df).tensor("f"),
+                                  tt.transform(df).tensor("f"))
+
+
+def test_image_transformer_with_fixed_batch_program_round_trip(
+        tmp_path, empty_caches):
+    """A function that wraps a fixed-batch program saves at that batch
+    and reloads with it."""
+    from sparkdl_tpu_torch import ImageTransformer
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.models import zoo
+    frozen = ModelFunction.deserialize(
+        zoo.getModelFunction("TestNet", device="cpu").export(batch_size=4),
+        device="cpu")
+    df = _testnet_frame(n=12)
+    it = ImageTransformer(inputCol="image", outputCol="f",
+                          modelFunction=frozen.rename_io(
+                              output_map={"features": "emb"}),
+                          batchSize=4)
+    it.save(str(tmp_path / "it"))
+    _no_pickle(str(tmp_path / "it"))
+    back = load_model(str(tmp_path / "it"))
+    assert back.getModelFunction()._fixed_batch == 4
+    assert back.getModelFunction().output_names == ["emb"]
+    np.testing.assert_array_equal(back.transform(df).tensor("f"),
+                                  it.transform(df).tensor("f"))
+
+
+def image_loader(uri):
+    """A module-level loader: saved by its import path."""
+    return np.full((4, 4, 3), len(uri) % 7, np.float32)
+
+
+def test_image_loader_saved_by_import_path(tmp_path):
+    import keras
+    from sparkdl_tpu_torch import KerasImageFileTransformer
+    model = keras.Sequential([keras.layers.Input((4, 4, 3)),
+                              keras.layers.Flatten(),
+                              keras.layers.Dense(2)])
+    mpath = str(tmp_path / "m.keras")
+    model.save(mpath)
+    t = KerasImageFileTransformer(inputCol="uri", outputCol="o",
+                                  modelFile=mpath, imageLoader=image_loader,
+                                  batchSize=2, device="cpu")
+    t.save(str(tmp_path / "k"))
+    _no_pickle(str(tmp_path / "k"))
+    meta = json.loads((tmp_path / "k" / "metadata.json").read_text())
+    assert meta["params"]["imageLoader"] == {
+        "kind": "callable", "module": __name__, "qualname": "image_loader"}
+    with pytest.raises(ValueError, match="outside the trusted module"):
+        load_model(str(tmp_path / "k"))
+    back = load_model(str(tmp_path / "k"), trusted_modules=[__name__])
+    assert back.getImageLoader() is image_loader
+    df = DataFrame.from_columns(
+        {"uri": np.array(["a", "bb", "ccc"], dtype=object)}, 2)
+    np.testing.assert_array_equal(back.transform(df).tensor("o"),
+                                  t.transform(df).tensor("o"))
+
+
+def test_lambda_refused_naming_its_key(tmp_path):
+    from sparkdl_tpu_torch import KerasImageFileTransformer
+    t = KerasImageFileTransformer(inputCol="uri", outputCol="o",
+                                  modelFile="m.keras",
+                                  imageLoader=lambda u: np.zeros(3))
+    with pytest.raises(TypeError, match="param_imageLoader") as err:
+        t.save(str(tmp_path / "k"))
+    assert "lambda" in str(err.value)

@@ -138,7 +138,9 @@ def test_import_closure_and_chip_smoke_without_cuda():
     the estimators, tuning and persistence, the metrics registry, the
     host pipeline and the input service among them), chip_smoke.py
     and k2_phases.py, loads none of jax, flax, sparkdl_tpu, pyarrow, PIL,
-    msgpack or cloudpickle; without CUDA chip_smoke.py and k2_phases.py
+    msgpack, cloudpickle, keras or tensorflow (the graph toolkit, the
+    Keras converter and transformers, the UDFs and the Keras weight
+    import among the modules); without CUDA chip_smoke.py and k2_phases.py
     exit non-zero and print nothing on stdout; and a spawned host
     pipeline worker and a ``DecodeServer`` subprocess, each running a
     probe stage that returns its ``sorted(sys.modules)``, load none of
@@ -156,13 +158,17 @@ def test_import_closure_and_chip_smoke_without_cuda():
         "                             'ParamGridBuilder', 'load_model',\n"
         "                             'ClassificationEvaluator',\n"
         "                             'BinaryClassificationEvaluator',\n"
-        "                             'LossEvaluator')\n"
+        "                             'LossEvaluator', 'KerasTransformer',\n"
+        "                             'KerasImageFileTransformer',\n"
+        "                             'TFImageTransformer', 'TFTransformer',\n"
+        "                             'TFInputGraph', 'ModelIngest',\n"
+        "                             'registerKerasImageUDF')\n"
         "                 if callable(getattr(sparkdl_tpu_torch, n)))\n"
         "smoke = runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
         "sys.path.insert(0, '.')\n"
         "phases = runpy.run_path('k2_phases.py', run_name='k2_phases')\n"
         "banned = ('jax', 'flax', 'sparkdl_tpu', 'pyarrow', 'PIL', "
-        "'msgpack', 'cloudpickle')\n"
+        "'msgpack', 'cloudpickle', 'keras', 'tensorflow')\n"
         "loaded = sorted(n for n in sys.modules\n"
         "                if n.split('.')[0] in banned)\n"
         "out = io.StringIO()\n"
@@ -219,7 +225,7 @@ def test_import_closure_and_chip_smoke_without_cuda():
     assert proc.returncode == 0, proc.stderr
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     banned = ("jax", "flax", "sparkdl_tpu", "pyarrow", "PIL", "msgpack",
-              "cloudpickle")
+              "cloudpickle", "keras", "tensorflow")
     for mod in ("transformers.named_image", "transformers.tensor_transform",
                 "native", "image.imageIO", "models.msgpack", "models.resnet",
                 "models.xception", "models.vgg", "models.zoo",
@@ -230,14 +236,21 @@ def test_import_closure_and_chip_smoke_without_cuda():
                 "estimators.evaluators", "obs", "obs.registry",
                 "data.pipeline", "data.codec", "inputsvc",
                 "inputsvc.transport", "inputsvc.server", "inputsvc.client",
-                "inputsvc.snapshot", "inputsvc.__main__"):
+                "inputsvc.snapshot", "inputsvc.__main__", "graph",
+                "graph.function", "graph.utils", "graph.pieces",
+                "graph.ingest", "graph.keras_convert", "params.image",
+                "transformers.keras_tensor", "transformers.keras_image",
+                "udf", "udf.registry", "udf.keras_image_model",
+                "models.import_keras"):
         assert f"sparkdl_tpu_torch.{mod}" in result["mods"]
     assert result["exports"] == sorted([
         "DataFrame", "DeepImagePredictor", "TensorTransformer",
         "readImagesPacked", "LogisticRegression", "Pipeline",
         "CrossValidator", "TrainValidationSplit", "ParamGridBuilder",
         "load_model", "ClassificationEvaluator",
-        "BinaryClassificationEvaluator", "LossEvaluator"])
+        "BinaryClassificationEvaluator", "LossEvaluator", "KerasTransformer",
+        "KerasImageFileTransformer", "TFImageTransformer", "TFTransformer",
+        "TFInputGraph", "ModelIngest", "registerKerasImageUDF"])
     assert result["loaded"] == []
     assert result["rc"] != 0 and result["rc_phases"] != 0
     assert result["smoke_stdout"] == ""
