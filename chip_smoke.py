@@ -171,11 +171,13 @@ Phases, one JSON line each on stdout:
                    times), bit for bit ``ImageTransformer``'s pass; the
                    UDF's direct call on one batch of 64 equals those rows.
                    Then one ``graph_phases`` line: the three phases'
-                   seconds. Nothing Keras-related runs here: the card's
-                   machine has no keras, so the Keras paths (the
-                   converter, ``KerasTransformer``,
+                   seconds. The card's machine has no keras, so what
+                   reads a Keras model or file (the converter's
+                   keras-reading half ``keras_spec``, ``KerasTransformer``,
                    ``KerasImageFileTransformer``, ``registerKerasImageUDF``,
-                   the weight import) are checked by the CPU tests only.
+                   the weight import) is checked by the CPU tests only;
+                   the estimator's training core runs here from the
+                   committed spec (``keras_estimator`` below).
 20. ``serve``     — online serving through ``ModelServer`` (bench.py's
                    serve shape: a 50 ms coalesce window, 512 queued rows,
                    batch 64, the request log armed): the headline's
@@ -265,19 +267,50 @@ Phases, one JSON line each on stdout:
                    state, one more step on each bit for bit)
                    (``parallel_train``); then ``parallel_phases``: the
                    phase's seconds and ``collective.*`` counters.
-23. ``trained_predict`` — ``DeepImagePredictor(modelName="TestNet",
+23. ``keras_estimator`` — ``KerasImageFileEstimator`` training
+                   ``keras.applications`` InceptionV3 at full width (the
+                   committed topology ``sparkdl_tpu_torch/models/
+                   keras_specs/inception_v3.json``: 299×299×3, a 1000-way
+                   softmax, 94 BatchNorms without ``gamma``) with seeded
+                   weights, through the estimator's private spec seam
+                   (the card's machine has no keras to read a model
+                   file), over 256 ``synth://<i>`` rows in 8 partitions
+                   whose ``imageLoader`` returns seeded 299×299×3 float32
+                   arrays in [-1, 1], labels 0-9 one-hot to 1000; adam,
+                   categorical cross-entropy, float32 with TF32 off,
+                   deterministic cuDNN. Seven gates: a 2-epoch fit at
+                   batch 32 lowers its epoch loss, moves all 94 moving
+                   means and variances and holds every parameter on
+                   ``cuda``; the same fit again bit for bit; one epoch
+                   with ``checkpointDir`` then two resumed from it
+                   (``resumedFrom`` 1) bit for bit the uninterrupted fit;
+                   ``fitMultiple`` over README's grid (``batch_size`` 32
+                   and 64) at ``parallelism=2`` on the one card, each
+                   trial bit for bit its serial fit;
+                   ``KerasImageFileModel.transform`` bit for bit the
+                   trained module's eval forward at batch 64;
+                   ``streaming=True`` with and without ``cacheDecoded``
+                   bit for bit; ``useMesh=True`` one warning and bit for
+                   bit. Printed: ms a step by CUDA events (median of the
+                   steps after the first) at batch 32 and 64 with the peak
+                   memory, each fit's wall seconds, the first fit's
+                   optimizer construction, the checkpoint's bytes and its
+                   save and restore seconds, and K1's and K2's launches
+                   over the phase (none: its convolutions are cuDNN's);
+                   then ``keras_estimator_phases``.
+24. ``trained_predict`` — ``DeepImagePredictor(modelName="TestNet",
                    decodePredictions=True, topK=1)`` with the committed,
                    trained weights (read by the port's msgpack reader)
                    over the held-out set its provenance names: accuracy
                    at least 0.95, each decoded name the raw scores' best.
-24. ``transfer_trained`` — ``Pipeline([DeepImageFeaturizer("TestNet"),
+25. ``transfer_trained`` — ``Pipeline([DeepImageFeaturizer("TestNet"),
                    LogisticRegression()])`` on the TestNet's 4,096 train
                    images, then ``CrossValidator`` (3 folds) and
                    ``TrainValidationSplit`` over ``regParam`` {0, 1e-2} ×
                    ``maxIter`` {50, 100} on the cached featurized train
                    split: finite metrics, and held-out accuracy at least
                    0.95 after the fit and for each best model.
-25. ``logreg_scale`` — ``LogisticRegression`` alone on 262,144 × 2,048
+26. ``logreg_scale`` — ``LogisticRegression`` alone on 262,144 × 2,048
                    seeded fp32 features, 10 classes, 64 partitions:
                    full-batch for 100 steps (ms a step beside its bound:
                    the table read twice a step over HBM bandwidth), the
@@ -285,7 +318,7 @@ Phases, one JSON line each on stdout:
                    streaming epoch at batch 4096, the default budget's
                    switch to streaming (with its warning), and the card
                    against the CPU at 8,192 rows, 20 steps.
-26. ``kernels``  — each kernel's launches on its paths and pass/fail.
+27. ``kernels``  — each kernel's launches on its paths and pass/fail.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -473,6 +506,20 @@ CKPT_KEEP = 2
 # bf16 update lowers the float32 loss, as the float32 update does; its
 # distance and cosine to the float32 update are printed
 TRAIN_FWD_ROUNDINGS = 96
+# the keras_estimator phase: keras.applications InceptionV3's committed
+# topology (299×299×3, a 1000-way softmax, every layer at full width)
+# with seeded weights, trained by KerasImageFileEstimator on 256 seeded
+# 299×299×3 rows in [-1, 1] in 8 partitions (labels 0-9, one-hot to
+# 1000), adam at its default learning rate, 2 epochs, in float32 with
+# TF32 off (main sets it) and deterministic cuDNN algorithms
+KE_SPEC = "sparkdl_tpu_torch/models/keras_specs/inception_v3.json"
+KE_ROWS = 256
+KE_PARTITIONS = 8
+KE_LABELS = 10
+KE_EPOCHS = 2
+KE_BATCH = 32
+KE_BATCH_LARGE = 64         # README's grid: batch_size 32 and 64
+KE_SEED = 0
 
 
 def emit(phase, **fields):
@@ -3956,6 +4003,253 @@ def train_phase(torch, np, smi_line):
                              f"{equal_ckpt}")
 
 
+def ke_loader(uri):
+    """The phase's imageLoader: row ``synth://<i>`` as a seeded 299×299×3
+    float32 array in [-1, 1] (the card's machine has no image decoder)."""
+    import numpy as np
+    i = int(uri.split("://", 1)[1])
+    return np.random.default_rng((KE_SEED, i)).uniform(
+        -1.0, 1.0, (299, 299, 3)).astype(np.float32)
+
+
+def ke_spec(np, repo):
+    """The committed InceptionV3 topology with seeded weights drawn by
+    each variable's shape: conv kernels He-normal, the dense kernel
+    Glorot-uniform, BatchNorm means and biases 0, variances 1, as Keras
+    initialises them."""
+    from sparkdl_tpu_torch.graph.keras_convert import KerasSpec
+    with open(os.path.join(repo, KE_SPEC)) as f:
+        spec = KerasSpec.from_json(f.read())
+    rng = np.random.default_rng(KE_SEED)
+    for v in spec.variables():
+        shape = tuple(v["shape"])
+        if v["name"] == "kernel" and len(shape) == 4:
+            std = np.sqrt(2.0 / (shape[0] * shape[1] * shape[2]))
+            value = rng.standard_normal(shape, np.float32) * np.float32(std)
+        elif v["name"] == "kernel":
+            lim = np.sqrt(6.0 / (shape[0] + shape[1]))
+            value = rng.uniform(-lim, lim, shape).astype(np.float32)
+        elif v["name"] in ("moving_variance", "gamma"):
+            value = np.ones(shape, np.float32)
+        else:
+            value = np.zeros(shape, np.float32)
+        spec.weights[v["path"]] = value
+    return spec
+
+
+def ke_estimator(spec, fit=None, **over):
+    """The phase's estimator over the seeded spec (the private seam in
+    place of reading the model file: the card's machine has no keras)."""
+    from sparkdl_tpu_torch import KerasImageFileEstimator
+    kw = dict(inputCol="uri", outputCol="probs", labelCol="label",
+              modelFile=KE_SPEC, imageLoader=ke_loader,
+              kerasOptimizer="adam", kerasLoss="categorical_crossentropy",
+              kerasFitParams={"epochs": KE_EPOCHS, "batch_size": KE_BATCH,
+                              "seed": KE_SEED, **(fit or {})},
+              batchSize=KE_BATCH_LARGE, useMesh=False)
+    kw.update(over)
+    est = KerasImageFileEstimator(**kw)
+    est._spec_override = spec
+    return est
+
+
+def ke_fit(torch, est, frame, walls, name):
+    t0 = time.perf_counter()
+    model = est.fit(frame)
+    torch.cuda.synchronize()
+    walls[name] = time.perf_counter() - t0
+    return model
+
+
+def ke_same(torch, a, b):
+    """Two fitted models with the same history and every parameter and
+    moving statistic bit for bit."""
+    sa = a.modelFunction.module.state_dict()
+    sb = b.modelFunction.module.state_dict()
+    return a.history == b.history and sa.keys() == sb.keys() and all(
+        torch.equal(sa[k], sb[k]) for k in sa)
+
+
+@contextlib.contextmanager
+def ke_step_events(torch):
+    """CUDA events around every train step taken inside the block."""
+    from sparkdl_tpu_torch.estimators import keras_image_file_estimator as k
+    real = k._TrainStep.__call__
+    events = []
+
+    def timed(self, xb, yb):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = real(self, xb, yb)
+        end.record()
+        events.append((start, end))
+        return loss
+
+    k._TrainStep.__call__ = timed
+    try:
+        yield events
+    finally:
+        k._TrainStep.__call__ = real
+
+
+def ke_timed_fit(torch, est, frame, walls, name):
+    """A fit with each step's device ms by CUDA events and the peak
+    memory."""
+    torch.cuda.reset_peak_memory_stats()
+    with ke_step_events(torch) as events:
+        model = ke_fit(torch, est, frame, walls, name)
+    ms = [s.elapsed_time(e) for s, e in events]
+    return model, ms, torch.cuda.max_memory_allocated()
+
+
+def ke_moved(model):
+    """How many BatchNorm layers' moving means and variances moved from
+    Keras's initial 0 and 1."""
+    module = model.modelFunction.module
+    state = module.state_dict()
+    means = [state[name] for path, (name, _) in module.variables.items()
+             if path.endswith("/moving_mean")]
+    variances = [state[name] for path, (name, _) in module.variables.items()
+                 if path.endswith("/moving_variance")]
+    return (sum(bool((m != 0).any()) for m in means), len(means),
+            sum(bool((v != 1).any()) for v in variances), len(variances))
+
+
+def keras_estimator_phase(torch, np, smi_line, repo):
+    """The Keras estimator on the card (module docstring,
+    ``keras_estimator``): seven gates over full-width InceptionV3 fits."""
+    import logging
+    import shutil
+
+    from sparkdl_tpu_torch import DataFrame
+    from sparkdl_tpu_torch.ops import infeed
+
+    t_phase = time.perf_counter()
+    spec = ke_spec(np, repo)
+    labels = np.random.default_rng(KE_SEED + 1).integers(0, KE_LABELS,
+                                                         KE_ROWS)
+    frame = DataFrame.from_pylist(
+        [{"uri": f"synth://{i}", "label": int(labels[i])}
+         for i in range(KE_ROWS)], num_partitions=KE_PARTITIONS)
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    infeed.launches = infeed.yuv420_launches = 0
+    walls, gates = {}, {}
+    ckdir = tempfile.mkdtemp(prefix="sparkdl_ke_ckpt_")
+    try:
+        # (1) a 2-epoch fit at batch 32 with adam
+        a, ms32, peak32 = ke_timed_fit(torch, ke_estimator(spec), frame,
+                                       walls, "fit")
+        moved = ke_moved(a)
+        on_card = all(p.device.type == "cuda" for p in
+                      a.modelFunction.module.parameters())
+        gates["loss_falls"] = a.history[-1] < a.history[0]
+        gates["statistics_moved"] = (moved[0] == moved[1] == 94
+                                     and moved[2] == moved[3] == 94)
+        gates["parameters_on_cuda"] = on_card
+        # (2) the same fit again
+        b = ke_fit(torch, ke_estimator(spec), frame, walls, "fit_again")
+        gates["repeat_bit_equal"] = ke_same(torch, a, b)
+        # (3) one epoch with checkpoints, then resumed to two
+        c1 = ke_fit(torch, ke_estimator(spec, {"epochs": 1},
+                                        checkpointDir=ckdir),
+                    frame, walls, "checkpointed_1_epoch")
+        (trial_dir,) = os.listdir(ckdir)
+        step_dir = os.path.join(ckdir, trial_dir, "1")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                         for f in os.listdir(step_dir))
+        c2 = ke_fit(torch, ke_estimator(spec, checkpointDir=ckdir), frame,
+                    walls, "resumed")
+        gates["resume_bit_equal"] = (c2.resumedFrom == 1
+                                     and ke_same(torch, c2, b))
+        # (4) README's grid at parallelism 2 on the one card, each trial
+        # against its own serial fit
+        d, ms64, peak64 = ke_timed_fit(
+            torch, ke_estimator(spec, {"batch_size": KE_BATCH_LARGE}),
+            frame, walls, "fit_batch64")
+        est = ke_estimator(spec, parallelism=2)
+        fp = est.getParam("kerasFitParams")
+        grid = [{fp: {"epochs": KE_EPOCHS, "batch_size": bs,
+                      "seed": KE_SEED}}
+                for bs in (KE_BATCH, KE_BATCH_LARGE)]
+        t0 = time.perf_counter()
+        trials = dict(est.fitMultiple(frame, grid))
+        torch.cuda.synchronize()
+        walls["fit_multiple"] = time.perf_counter() - t0
+        gates["fit_multiple_bit_equal"] = (
+            sorted(trials) == [0, 1] and ke_same(torch, trials[0], a)
+            and ke_same(torch, trials[1], d))
+        del trials
+        # (5) transform against the trained module's eval forward
+        t0 = time.perf_counter()
+        probs = np.asarray(a.transform(frame).collect()["probs"])
+        walls["transform"] = time.perf_counter() - t0
+        x = np.stack([ke_loader(f"synth://{i}") for i in range(KE_ROWS)])
+        with torch.inference_mode():
+            ref = np.concatenate([
+                a.modelFunction.module({"input": torch.from_numpy(
+                    x[i:i + KE_BATCH_LARGE]).cuda()})["output_0"]
+                .cpu().numpy() for i in range(0, KE_ROWS, KE_BATCH_LARGE)])
+        gates["transform_bit_equal"] = (
+            probs.shape == (KE_ROWS, 1000) and bool(np.isfinite(probs).all())
+            and np.array_equal(probs, ref))
+        # (6) streaming, with and without cacheDecoded
+        e = ke_fit(torch, ke_estimator(spec, streaming=True), frame, walls,
+                   "streaming")
+        f = ke_fit(torch, ke_estimator(spec, streaming=True,
+                                       cacheDecoded=True),
+                   frame, walls, "streaming_cached")
+        gates["cache_decoded_bit_equal"] = ke_same(torch, e, f)
+        # (7) useMesh=True on the one card: one warning, the same bits
+        log = logging.getLogger(
+            "sparkdl_tpu_torch.estimators.keras_image_file_estimator")
+        seen = []
+        handler = logging.Handler()
+        handler.emit = seen.append
+        log.addHandler(handler)
+        try:
+            g = ke_fit(torch, ke_estimator(spec, useMesh=True), frame, walls,
+                       "use_mesh")
+        finally:
+            log.removeHandler(handler)
+        warned = sum("useMesh requested" in r.getMessage() for r in seen)
+        gates["use_mesh_warns_once_bit_equal"] = (warned == 1
+                                                  and ke_same(torch, g, b))
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+        shutil.rmtree(ckdir, ignore_errors=True)
+    launches = {KERNEL: infeed.launches, KERNEL_YUV420: infeed.yuv420_launches}
+    emit("keras_estimator", model="keras.applications.InceptionV3",
+         spec=KE_SPEC, rows=KE_ROWS, partitions=KE_PARTITIONS,
+         epochs=KE_EPOCHS, optimizer="adam",
+         dtype="float32", tf32={"matmul": torch.backends.cuda.matmul
+                                .allow_tf32,
+                                "cudnn": torch.backends.cudnn.allow_tf32},
+         cudnn_deterministic=True,
+         step_ms={str(KE_BATCH): median(ms32[1:]),
+                  str(KE_BATCH_LARGE): median(ms64[1:])},
+         step_ms_all={str(KE_BATCH): ms32, str(KE_BATCH_LARGE): ms64},
+         peak_memory_bytes={str(KE_BATCH): peak32,
+                            str(KE_BATCH_LARGE): peak64},
+         history=a.history, bn_moving_moved=list(moved),
+         fit_wall_s=walls, first_fit=a.fitStats,
+         optimizer_construction_s=a.fitStats["optimizer_s"],
+         checkpoint={"bytes": ckpt_bytes,
+                     "save_s": c1.fitStats["save_s"],
+                     "restore_s": c2.fitStats["restore_s"],
+                     "resumed_from": c2.resumedFrom},
+         use_mesh_warnings=warned, gates=gates, kernel_launches=launches,
+         card=smi_line)
+    emit("keras_estimator_phases", seconds=time.perf_counter() - t_phase,
+         fits=len(walls) - 1, card=smi_line)
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed or any(launches.values()):
+        raise AssertionError(f"keras_estimator: gates failed {failed}; "
+                             f"kernel launches {launches} (none expected)")
+
+
 def parallel_phase(torch, np, smi_line, frame, head, featurize_ref):
     """``parallel/`` on the card (module docstring, ``parallel``).
     Returns K1's and K2's launches over the phase."""
@@ -4090,6 +4384,9 @@ def main():
     k1_paths["parallel"], yuv_parallel = parallel_phase(
         torch, np, smi, frame, head, featurize_ref)
     del frame, head, featurize_ref
+    # the Keras estimator: full-width InceptionV3 fits (no kernel of the
+    # port's runs on this path: its convolutions are cuDNN's)
+    keras_estimator_phase(torch, np, smi, repo)
     yuv_paths = {"headline": yuv_launches, "strategies": yuv_strategies,
                  "host_pipeline": yuv_pipe, "input_service": yuv_fleet,
                  "snapshot": yuv_snapshot, "export": yuv_export,

@@ -10,7 +10,8 @@ evaluators, ``CrossValidator`` / ``TrainValidationSplit`` and
 ``torch.export`` and saved, ``ModelIngest`` / ``TFInputGraph``; the Keras
 inference paths ``KerasTransformer``, ``KerasImageFileTransformer`` and
 ``registerKerasImageUDF``, whose Keras models are converted to torch
-modules), run by PyTorch on an NVIDIA GPU, with the JAX package's
+modules; the Keras estimator ``KerasImageFileEstimator``, which trains
+a converted Keras model with its hyperparameter search), run by PyTorch on an NVIDIA GPU, with the JAX package's
 hand-written TPU kernel and its
 4:2:0 resize-and-colour op rewritten as CUDA kernels
 (``ops/csrc/resize_normalize.cu``, ``ops/csrc/yuv420_resize_normalize.cu``).
@@ -58,6 +59,9 @@ _EXPORTS = {
     "DataFrame": ("sparkdl_tpu_torch.data.frame", "DataFrame"),
     "LogisticRegression": ("sparkdl_tpu_torch.estimators.logistic_regression",
                            "LogisticRegression"),
+    "KerasImageFileEstimator": (
+        "sparkdl_tpu_torch.estimators.keras_image_file_estimator",
+        "KerasImageFileEstimator"),
     "Pipeline": ("sparkdl_tpu_torch.params.pipeline", "Pipeline"),
     "CrossValidator": ("sparkdl_tpu_torch.params.tuning", "CrossValidator"),
     "TrainValidationSplit": ("sparkdl_tpu_torch.params.tuning",

@@ -128,6 +128,25 @@ def batch_moments(x32: torch.Tensor):
     return moments[0], moments[1]
 
 
+def keras_batch_moments(x: torch.Tensor, dims: Tuple[int, ...]):
+    """Per channel ``(mean(x), mean((x - mean)²))`` over ``dims``, Keras
+    3's moments (``jnp.mean`` then ``jnp.var``, the biased variance about
+    the mean). Inside :func:`synced_batch_stats` both are the data
+    group's: the mean is averaged over the group first, then each rank's
+    squared deviations from it."""
+    sync = getattr(_SYNC, "group", None)
+    mean = x.mean(dim=dims, keepdim=True)
+    if sync is not None:
+        from torch.distributed.nn.functional import all_reduce
+        group, size = sync
+        mean = all_reduce(mean, group=group) / size
+    d = x - mean
+    var = (d * d).mean(dim=dims)
+    if sync is not None:
+        var = all_reduce(var, group=group) / size
+    return mean.reshape(-1), var
+
+
 def conv2d(x: torch.Tensor, conv: nn.Conv2d, padding: Padding,
            dtype: torch.dtype) -> torch.Tensor:
     """``conv``'s weights (and bias) applied in ``dtype``, with flax's

@@ -35,7 +35,16 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
+from typing import (
+    Any,
+    Callable,
+    Container,
+    Dict,
+    Mapping,
+    Optional,
+    Sequence,
+    Tuple,
+)
 
 import numpy as np
 import torch
@@ -288,23 +297,30 @@ def _average(metrics: Dict[str, torch.Tensor], group, size: int):
     return {"loss": stacked[0], "accuracy": stacked[1]}
 
 
-def _average_grads(state: TrainState, mesh: Mesh, data_group) -> None:
-    """Average every gradient over the data group in one flat
-    all-reduce. A split parameter's gradient came out of the gather's
-    backward summed over the model group's identical replicas of the
-    forward, so it is divided by the model axis too."""
+def average_gradients(params: Mapping[str, torch.Tensor], group,
+                      size: int, shards: Container[str] = (),
+                      model_n: int = 1) -> None:
+    """Average every gradient of ``params`` over ``group`` (``size``
+    ranks) in one flat all-reduce. A split parameter's gradient (named in
+    ``shards``) came out of the gather's backward summed over the model
+    group's ``model_n`` identical replicas of the forward, so it is
+    divided by the model axis too."""
     import torch.distributed as dist
-    names = [k for k, p in state.params.items() if p.grad is not None]
-    grads = [state.params[k].grad for k in names]
+    names = [k for k, p in params.items() if p.grad is not None]
+    grads = [params[k].grad for k in names]
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=data_group)
-    flat /= mesh.shape[DATA_AXIS]
-    model_n = mesh.shape[MODEL_AXIS]
+    dist.all_reduce(flat, group=group)
+    flat /= size
     lo = 0
     for k, g in zip(names, grads):
         part = flat[lo:lo + g.numel()].view_as(g)
         lo += g.numel()
-        g.copy_(part / model_n if k in state.shards else part)
+        g.copy_(part / model_n if k in shards else part)
+
+
+def _average_grads(state: TrainState, mesh: Mesh, data_group) -> None:
+    average_gradients(state.params, data_group, mesh.shape[DATA_AXIS],
+                      state.shards, mesh.shape[MODEL_AXIS])
 
 
 class ShardedTrainStep:

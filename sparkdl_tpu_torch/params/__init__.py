@@ -29,7 +29,9 @@ from sparkdl_tpu_torch.params.shared import (  # noqa: F401
     HasDeviceResizeFrom,
     HasInputCol,
     HasInputMapping,
+    HasKerasLoss,
     HasKerasModel,
+    HasKerasOptimizer,
     HasLabelCol,
     HasModelFunction,
     HasOutputCol,

@@ -310,6 +310,39 @@ class TypeConverters:
         return out
 
     @staticmethod
+    def toOptimizer(value):
+        """An optimizer name the port maps to a torch optimizer with
+        optax's defaults, or a factory ``params -> torch.optim.Optimizer``
+        (the counterpart of passing an optax transformation)."""
+        from sparkdl_tpu_torch.estimators.keras_image_file_estimator import (
+            OPTIMIZERS,
+        )
+        if isinstance(value, str):
+            if value not in OPTIMIZERS:
+                raise TypeError(f"unknown optimizer {value!r}; the port "
+                                f"maps {sorted(OPTIMIZERS)}")
+            return value
+        if callable(value):
+            return value
+        raise TypeError(
+            f"expected optimizer name or factory, got {value!r}")
+
+    @staticmethod
+    def toLoss(value):
+        """A loss name (the Keras-era ones or optax's) or a callable."""
+        from sparkdl_tpu_torch.estimators.keras_image_file_estimator import (
+            LOSSES,
+        )
+        if isinstance(value, str):
+            if value not in LOSSES:
+                raise TypeError(f"unknown loss {value!r}; the port has "
+                                f"{sorted(LOSSES)}")
+            return value
+        if callable(value):
+            return value
+        raise TypeError(f"expected loss name or callable, got {value!r}")
+
+    @staticmethod
     def toModelFunction(value):
         from sparkdl_tpu_torch.graph.function import ModelFunction
         if isinstance(value, ModelFunction):

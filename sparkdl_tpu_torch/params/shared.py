@@ -209,3 +209,31 @@ class HasKerasModel(Params):
 
     def getKerasFitParams(self) -> dict:
         return dict(self.getOrDefault("kerasFitParams"))
+
+
+class HasKerasOptimizer(Params):
+    """The optimizer: an optax name, trained with a torch optimizer that
+    takes optax's defaults (``estimators/keras_image_file_estimator.py::
+    OPTIMIZERS``), or a factory ``params -> torch.optim.Optimizer``."""
+
+    kerasOptimizer = Param("HasKerasOptimizer", "kerasOptimizer",
+                           "optax optimizer name or optimizer factory",
+                           TypeConverters.toOptimizer)
+
+    def setKerasOptimizer(self, value):
+        return self._set(kerasOptimizer=value)
+
+    def getKerasOptimizer(self):
+        return self.getOrDefault("kerasOptimizer")
+
+
+class HasKerasLoss(Params):
+    kerasLoss = Param("HasKerasLoss", "kerasLoss",
+                      "loss name or callable(params_out, labels) -> scalar",
+                      TypeConverters.toLoss)
+
+    def setKerasLoss(self, value):
+        return self._set(kerasLoss=value)
+
+    def getKerasLoss(self):
+        return self.getOrDefault("kerasLoss")

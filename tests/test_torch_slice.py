@@ -140,10 +140,10 @@ def test_import_closure_and_chip_smoke_without_cuda():
     tracker and the request log, the span tracer, the report and its
     ``python -m`` entry, the watchdog, the flight recorder and the
     telemetry surface among them), chip_smoke.py
-    and k2_phases.py, loads none of jax, flax, sparkdl_tpu, pyarrow, PIL,
-    msgpack, cloudpickle, keras or tensorflow (the graph toolkit, the
-    Keras converter and transformers, the UDFs and the Keras weight
-    import among the modules); without CUDA chip_smoke.py and k2_phases.py
+    and k2_phases.py, loads none of jax, flax, optax, sparkdl_tpu,
+    pyarrow, PIL, msgpack, cloudpickle, keras or tensorflow (the graph
+    toolkit, the Keras converter and transformers, the UDFs, the Keras
+    weight import and the Keras estimator among the modules); without CUDA chip_smoke.py and k2_phases.py
     exit non-zero and print nothing on stdout; and a spawned host
     pipeline worker and a ``DecodeServer`` subprocess, each running a
     probe stage that returns its ``sorted(sys.modules)``, load none of
@@ -165,13 +165,14 @@ def test_import_closure_and_chip_smoke_without_cuda():
         "                             'KerasImageFileTransformer',\n"
         "                             'TFImageTransformer', 'TFTransformer',\n"
         "                             'TFInputGraph', 'ModelIngest',\n"
-        "                             'registerKerasImageUDF')\n"
+        "                             'registerKerasImageUDF',\n"
+        "                             'KerasImageFileEstimator')\n"
         "                 if callable(getattr(sparkdl_tpu_torch, n)))\n"
         "smoke = runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
         "sys.path.insert(0, '.')\n"
         "phases = runpy.run_path('k2_phases.py', run_name='k2_phases')\n"
-        "banned = ('jax', 'flax', 'sparkdl_tpu', 'pyarrow', 'PIL', "
-        "'msgpack', 'cloudpickle', 'keras', 'tensorflow')\n"
+        "banned = ('jax', 'flax', 'optax', 'sparkdl_tpu', 'pyarrow', "
+        "'PIL', 'msgpack', 'cloudpickle', 'keras', 'tensorflow')\n"
         "loaded = sorted(n for n in sys.modules\n"
         "                if n.split('.')[0] in banned)\n"
         "out = io.StringIO()\n"
@@ -227,8 +228,8 @@ def test_import_closure_and_chip_smoke_without_cuda():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     result = json.loads(proc.stdout.strip().splitlines()[-1])
-    banned = ("jax", "flax", "sparkdl_tpu", "pyarrow", "PIL", "msgpack",
-              "cloudpickle", "keras", "tensorflow")
+    banned = ("jax", "flax", "optax", "sparkdl_tpu", "pyarrow", "PIL",
+              "msgpack", "cloudpickle", "keras", "tensorflow")
     for mod in ("transformers.named_image", "transformers.tensor_transform",
                 "native", "image.imageIO", "models.msgpack", "models.resnet",
                 "models.xception", "models.vgg", "models.zoo",
@@ -246,7 +247,9 @@ def test_import_closure_and_chip_smoke_without_cuda():
                 "udf", "udf.registry", "udf.keras_image_model",
                 "models.import_keras", "obs.trace", "obs.report",
                 "obs.__main__", "obs.watchdog", "obs.flight", "obs.export",
-                "runtime.sanitize"):
+                "runtime.sanitize", "estimators",
+                "estimators.keras_image_file_estimator", "params.shared",
+                "parallel.train"):
         assert f"sparkdl_tpu_torch.{mod}" in result["mods"]
     assert result["exports"] == sorted([
         "DataFrame", "DeepImagePredictor", "TensorTransformer",
@@ -255,7 +258,8 @@ def test_import_closure_and_chip_smoke_without_cuda():
         "load_model", "ClassificationEvaluator",
         "BinaryClassificationEvaluator", "LossEvaluator", "KerasTransformer",
         "KerasImageFileTransformer", "TFImageTransformer", "TFTransformer",
-        "TFInputGraph", "ModelIngest", "registerKerasImageUDF"])
+        "TFInputGraph", "ModelIngest", "registerKerasImageUDF",
+        "KerasImageFileEstimator"])
     assert result["loaded"] == []
     assert result["rc"] != 0 and result["rc_phases"] != 0
     assert result["smoke_stdout"] == ""
