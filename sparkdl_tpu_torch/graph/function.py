@@ -310,7 +310,7 @@ def _placed(name: str, module: nn.Module, device: torch.device,
 
 def _load_program(blob: bytes, device: torch.device):
     """``torch.export.load`` of ``blob``, moved onto ``device``."""
-    # registers K1 and K2, which the program calls by name
+    # registers K1, K2 and K3, which the program calls by name
     import sparkdl_tpu_torch.ops  # noqa: F401
     from torch.export.passes import move_to_device_pass
     try:

@@ -11,6 +11,14 @@ Padding follows flax: ``"SAME"`` pads TF-style, with the odd pixel at
 the end when the total is odd (a stride-2 3×3 conv on 32 px pads
 ``(0, 1)``), and SAME max-pooling pads with ``-inf``.
 
+On the card, in inference where no gradient is needed and the conv runs
+in bf16, a conv unit's epilogue (the conv's bias, BatchNorm, the
+residual of a ResNet bottleneck and the ReLU) is one launch of the op
+``sparkdl_tpu_torch::conv_epilogue`` (``ops/epilogue.py``). Everywhere
+else, the CPU included, it is the eager chain: ``conv2d`` with its bias,
+``BatchNorm.forward``, the cast, the residual add and ``F.relu``. The
+values are the same either way.
+
 Every conv unit takes ``train`` (default False). In training, BatchNorm
 normalizes with the batch's statistics and moves its running ones, as
 flax's ``BatchNorm(use_running_average=False, momentum=0.9)`` does.
@@ -24,11 +32,13 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from sparkdl_tpu_torch.ops import epilogue
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
 
@@ -95,12 +105,17 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
+    def inference_terms(self):
+        """``(mean, mul, offset)`` of the inference formula ``(x - mean) *
+        mul + offset``: the running mean, ``rsqrt(running_var + eps) *
+        scale`` and the offset."""
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return self.running_mean, mul, self.bias
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         shape = (1, -1, 1, 1)
         if not train:
-            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-            y = x.to(torch.float32) - self.running_mean.view(shape)
-            return y * mul.view(shape) + self.bias.view(shape)
+            return epilogue.batchnorm(x, *self.inference_terms())
         x32 = x.to(torch.float32)
         mean, mean2 = batch_moments(x32)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
@@ -147,24 +162,84 @@ def keras_batch_moments(x: torch.Tensor, dims: Tuple[int, ...]):
     return mean.reshape(-1), var
 
 
+def _conv(x: torch.Tensor, conv: nn.Conv2d, padding: Padding,
+          dtype: torch.dtype) -> torch.Tensor:
+    """``conv``'s weights applied in ``dtype``, without its bias."""
+    x, pad = _pad(x.to(dtype), _resolve_pads(x, padding, conv.kernel_size,
+                                             conv.stride))
+    return F.conv2d(x, conv.weight.to(dtype), stride=conv.stride,
+                    padding=pad, groups=conv.groups)
+
+
 def conv2d(x: torch.Tensor, conv: nn.Conv2d, padding: Padding,
            dtype: torch.dtype) -> torch.Tensor:
     """``conv``'s weights (and bias) applied in ``dtype``, with flax's
     padding: input and weights cast to ``dtype``, and the bias added to
     the ``dtype`` result, as ``nn.Conv(dtype=...)`` does."""
-    x, pad = _pad(x.to(dtype), _resolve_pads(x, padding, conv.kernel_size,
-                                             conv.stride))
-    y = F.conv2d(x, conv.weight.to(dtype), stride=conv.stride, padding=pad,
-                 groups=conv.groups)
+    y = _conv(x, conv, padding, dtype)
     if conv.bias is not None:
         y = y + conv.bias.to(dtype).view(1, -1, 1, 1)
     return y
 
 
+# devices on which a conv unit's inference epilogue is one call of the
+# fused op. The CPU keeps the eager chain through conv2d and
+# BatchNorm.forward, the functions perfbench's CPU tests patch to plant
+# the faults its comparison must catch; the op's CPU implementation is
+# the same chain, value for value
+EPILOGUE_DEVICES = ("cuda",)
+
+
+def _fuses(unit: nn.Module, x: torch.Tensor, train: bool,
+           residual: Optional[torch.Tensor] = None) -> bool:
+    """Whether ``unit`` (a :class:`ConvBN` or :class:`SeparableConvBN`)
+    runs its epilogue as one call of the fused op: inference on an
+    :data:`EPILOGUE_DEVICES` device in bf16, float32 BatchNorm, a bf16
+    residual, and no gradient needed (the op has no autograd formula)."""
+    bn = unit.bn
+    return (not train and unit.dtype == torch.bfloat16
+            and x.device.type in EPILOGUE_DEVICES
+            and all(t.dtype == torch.float32 for t in (
+                bn.weight, bn.bias, bn.running_mean, bn.running_var))
+            and (residual is None or residual.dtype == torch.bfloat16)
+            and not (torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (x, residual, *unit.parameters()))))
+
+
+def _fused_epilogue(y: torch.Tensor, conv_bias, bn: BatchNorm, relu: bool,
+                    residual: Optional[torch.Tensor]) -> torch.Tensor:
+    """``relu(bn(y + bias).to(bf16) + residual)`` as one call of the op
+    (``ops/epilogue.py``), on the bf16 conv output before its bias; the
+    residual is brought to ``y``'s layout."""
+    if residual is not None:
+        residual = residual.contiguous(memory_format=(
+            torch.channels_last if epilogue.channels_last(y)
+            else torch.contiguous_format))
+    bias = None if conv_bias is None else conv_bias.to(torch.bfloat16)
+    return epilogue.conv_epilogue(y, bias, *bn.inference_terms(), residual,
+                                  relu)
+
+
+def _eager_epilogue(y: torch.Tensor, bn: BatchNorm, relu: bool,
+                    dtype: torch.dtype, train: bool,
+                    residual: Optional[torch.Tensor]) -> torch.Tensor:
+    """``relu(bn(y).to(dtype) + residual)`` in eager ops on the biased
+    conv output, with :class:`BatchNorm`'s own forward (the batch's
+    statistics in training); counted as ``model.epilogue.eager`` on the
+    card."""
+    epilogue.count_eager(y)
+    y = bn(y, train).to(dtype)
+    if residual is not None:
+        y = y + residual
+    return F.relu(y) if relu else y
+
+
 class ConvBN(nn.Module):
     """Conv (bias optional) + BatchNorm + optional ReLU — the
     ``conv2d_bn`` unit every zoo CNN is built from (ResNet50's convs
-    carry biases)."""
+    carry biases). A ``residual`` passed to :meth:`forward` is added
+    after BatchNorm, before the ReLU (a ResNet bottleneck's shortcut)."""
 
     def __init__(self, in_features: int, features: int,
                  kernel: Tuple[int, int] = (3, 3),
@@ -180,10 +255,15 @@ class ConvBN(nn.Module):
                               stride=tuple(strides), bias=use_bias)
         self.bn = BatchNorm(features, bn_epsilon)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if _fuses(self, x, train, residual):
+            y = _conv(x, self.conv, self.padding, self.dtype)
+            return _fused_epilogue(y, self.conv.bias, self.bn, self.relu,
+                                   residual)
         y = conv2d(x, self.conv, self.padding, self.dtype)
-        y = self.bn(y, train).to(self.dtype)
-        return F.relu(y) if self.relu else y
+        return _eager_epilogue(y, self.bn, self.relu, self.dtype, train,
+                               residual)
 
 
 class SeparableConvBN(nn.Module):
@@ -208,8 +288,10 @@ class SeparableConvBN(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         y = conv2d(x, self.depthwise, "SAME", self.dtype)
         y = conv2d(y, self.pointwise, "SAME", self.dtype)
-        y = self.bn(y, train).to(self.dtype)
-        return F.relu(y) if self.relu else y
+        if _fuses(self, x, train):
+            return _fused_epilogue(y, None, self.bn, self.relu, None)
+        return _eager_epilogue(y, self.bn, self.relu, self.dtype, train,
+                               None)
 
 
 def max_pool(x: torch.Tensor, window=(3, 3), strides=(2, 2),

@@ -6,7 +6,9 @@ keras.applications' ResNet50 has biased convs and BatchNorm epsilon
 1.001e-5. Submodules carry flax's names: in a bottleneck that projects
 its shortcut, the projection is created first, so it is ``ConvBN_0`` and
 the main branch ``ConvBN_1..3``; otherwise the main branch is
-``ConvBN_0..2``.
+``ConvBN_0..2``. The main branch's last unit adds the shortcut before
+its ReLU, so on the card in inference the add and the ReLU are part of
+its one epilogue pass (``models/layers.py::ConvBN``).
 """
 
 from __future__ import annotations
@@ -14,7 +16,6 @@ from __future__ import annotations
 import functools
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from sparkdl_tpu_torch.models.layers import (
@@ -32,9 +33,10 @@ class Bottleneck(nn.Module):
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         out = filters * 4
+        # the last unit adds the shortcut before its ReLU
         specs = [(in_features, filters, (1, 1), strides, True),
                  (filters, filters, (3, 3), (1, 1), True),
-                 (filters, out, (1, 1), (1, 1), False)]
+                 (filters, out, (1, 1), (1, 1), True)]
         if project:
             specs.insert(0, (in_features, out, (1, 1), strides, False))
         for i, (cin, cout, kernel, s, relu) in enumerate(specs):
@@ -46,9 +48,10 @@ class Bottleneck(nn.Module):
         first = 1 if self.project else 0
         shortcut = self.ConvBN_0(x, train) if self.project else x
         y = x
-        for i in range(first, first + 3):
+        for i in range(first, first + 2):
             y = getattr(self, f"ConvBN_{i}")(y, train)
-        return F.relu(y + shortcut)
+        return getattr(self, f"ConvBN_{first + 2}")(y, train,
+                                                    residual=shortcut)
 
 
 class ResNet50(nn.Module):

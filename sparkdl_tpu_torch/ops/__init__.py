@@ -11,3 +11,7 @@ from sparkdl_tpu_torch.ops.infeed import (  # noqa: F401
     round_to_uint8,
     yuv420_unpack,
 )
+from sparkdl_tpu_torch.ops.epilogue import (  # noqa: F401
+    conv_epilogue,
+    conv_epilogue_plain,
+)

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher. It is
 compiled by nvcc for Hopper (``sm_90a``) at first use into
 ``sparkdl_tpu_torch/_build/`` — a directory git ignores — under a name
-that carries a hash of every ``csrc`` file and of the flags, so an edited
-source or header is rebuilt and a stale library is never loaded. The
-library is loaded with ctypes; callers declare each function's argtypes.
+that carries a hash of its source, of the headers beside it and of the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded. The library is loaded with ctypes; callers declare each
+function's argtypes.
 A build that really ran nvcc is a ``build`` event in the compile log
 (``obs/compile_log.py``) when it is armed.
 """
@@ -48,10 +49,14 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> str:
     """Where the library of ``name`` goes: its name carries a hash of the
-    flags and of every file in ``csrc/`` (so any header the source may
-    include is covered)."""
+    flags, of ``csrc/<name>.cu`` and of every other file in ``csrc/`` that
+    is not a ``.cu`` source (so any header the source may include is
+    covered, and another kernel's source is not: each kernel is a library
+    of its own, rebuilt only when its own inputs change)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for entry in sorted(os.listdir(CSRC_DIR)):
+        if entry.endswith(".cu") and entry != f"{name}.cu":
+            continue
         with open(os.path.join(CSRC_DIR, entry), "rb") as f:
             digest.update(entry.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")

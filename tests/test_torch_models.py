@@ -20,6 +20,7 @@ Each comparison states its tolerance:
   a deep net carries such flips forward.
 """
 
+import copy
 import os
 
 import jax
@@ -27,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from sparkdl_tpu.models import inception as jax_inception
 from sparkdl_tpu.models import layers as jax_layers
@@ -605,3 +607,160 @@ def test_zoo_registry_and_preprocess_match_jax(name):
     ref = np.asarray(ref_spec.preprocess(jnp.asarray(x)))
     got = spec.preprocess(torch.from_numpy(x).permute(0, 3, 1, 2))
     np.testing.assert_array_equal(nhwc(got), ref)
+
+
+# ---------------------------------------------------------------------------
+# The conv units' inference epilogue (ops/epilogue.py) against the eager
+# chain the units ran before it, with seeded non-identity BatchNorm
+# ---------------------------------------------------------------------------
+
+from sparkdl_tpu_torch.ops import epilogue  # noqa: E402
+
+
+def _seed_units(module, seed=0):
+    """Seeded BatchNorm statistics, scales and offsets and conv biases
+    (the zoo's init leaves BatchNorm at identity, which would hide a
+    missing mean or offset)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, layers.BatchNorm):
+                c = m.weight.numel()
+                m.weight.copy_(torch.rand(c, generator=g) + 0.5)
+                m.bias.copy_(torch.randn(c, generator=g) * 0.3)
+                m.running_mean.copy_(torch.randn(c, generator=g) * 0.3)
+                m.running_var.copy_(torch.rand(c, generator=g) + 0.5)
+            if isinstance(m, torch.nn.Conv2d) and m.bias is not None:
+                m.bias.copy_(torch.randn(m.bias.numel(), generator=g) * 0.3)
+    return module.eval()
+
+
+def _eager_unit(m, x, train=False, relu=None):
+    """A conv unit as it ran before the fused op: the conv with its bf16
+    bias, BatchNorm's fp32 formula (the batch's statistics in training),
+    the cast back, ReLU."""
+    if isinstance(m, layers.SeparableConvBN):
+        y = layers.conv2d(x, m.depthwise, "SAME", m.dtype)
+        y = layers.conv2d(y, m.pointwise, "SAME", m.dtype)
+    else:
+        y = layers.conv2d(x, m.conv, m.padding, m.dtype)
+    if train:
+        y = m.bn(y, True)
+    else:
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(m.bn.running_var + m.bn.eps) * m.bn.weight
+        y = ((y.to(torch.float32) - m.bn.running_mean.view(shape))
+             * mul.view(shape) + m.bn.bias.view(shape))
+    y = y.to(m.dtype)
+    relu = m.relu if relu is None else relu
+    return F.relu(y) if relu else y
+
+
+def _eager_bottleneck(b, x, train=False):
+    first = 1 if b.project else 0
+    shortcut = _eager_unit(b.ConvBN_0, x, train) if b.project else x
+    y = x
+    for i in range(first, first + 2):
+        y = _eager_unit(getattr(b, f"ConvBN_{i}"), y, train)
+    y = _eager_unit(getattr(b, f"ConvBN_{first + 2}"), y, train, relu=False)
+    return F.relu(y + shortcut)
+
+
+def _cl(shape, dtype=torch.float32, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+
+
+# (id, module, eager version, input, conv units the forward runs)
+EPILOGUE_UNITS = [
+    ("convbn", lambda: layers.ConvBN(5, 16), _eager_unit,
+     lambda: _cl((2, 5, 9, 9)), 1),
+    ("convbn_biased_no_relu", lambda: layers.ConvBN(
+        6, 8, (1, 1), strides=(2, 2), relu=False, bn_epsilon=1.001e-5,
+        use_bias=True), _eager_unit, lambda: _cl((2, 6, 9, 8)), 1),
+    ("separable", lambda: layers.SeparableConvBN(8, 12), _eager_unit,
+     lambda: _cl((2, 8, 7, 7)), 1),
+    ("bottleneck", lambda: resnet.Bottleneck(32, 8), _eager_bottleneck,
+     lambda: _cl((2, 32, 6, 6), torch.bfloat16), 3),
+    ("bottleneck_projected", lambda: resnet.Bottleneck(
+        16, 8, strides=(2, 2), project=True), _eager_bottleneck,
+     lambda: _cl((2, 16, 8, 8), torch.bfloat16), 4),
+]
+
+
+def _spy_epilogue(monkeypatch):
+    calls = []
+    fused = epilogue.conv_epilogue
+
+    def spy(*args, **kwargs):
+        calls.append(args[0].shape)
+        return fused(*args, **kwargs)
+    monkeypatch.setattr(epilogue, "conv_epilogue", spy)
+    return calls
+
+
+def _spy_batchnorm(monkeypatch):
+    calls = []
+    forward = layers.BatchNorm.forward
+
+    def spy(self, x, train=False):
+        calls.append(x.shape)
+        return forward(self, x, train)
+    monkeypatch.setattr(layers.BatchNorm, "forward", spy)
+    return calls
+
+
+@pytest.mark.parametrize("devices", [("cpu", "cuda"), ("cuda",)],
+                         ids=["fused", "cpu_default"])
+@pytest.mark.parametrize("case", EPILOGUE_UNITS,
+                         ids=[c[0] for c in EPILOGUE_UNITS])
+def test_units_through_the_fused_op_equal_the_eager_chain(case, devices,
+                                                          monkeypatch):
+    """In inference each unit goes through the op once where its device
+    fuses the epilogue, and its output is bit for bit what the eager
+    chain gave, in the input's layout. By default the CPU keeps the eager
+    chain and its calls of ``BatchNorm.forward``, which perfbench's CPU
+    tests patch to plant faults."""
+    _, make, eager, make_x, units = case
+    module, x = _seed_units(make()), make_x()
+    monkeypatch.setattr(layers, "EPILOGUE_DEVICES", devices)
+    calls = _spy_epilogue(monkeypatch)
+    with torch.inference_mode():
+        want = eager(module, x)
+        bn_calls = _spy_batchnorm(monkeypatch)
+        got = module(x)
+    fused = "cpu" in devices
+    assert len(calls) == (units if fused else 0)
+    assert len(bn_calls) == (0 if fused else units)
+    assert got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("mode", ["train", "grad"])
+@pytest.mark.parametrize("case", EPILOGUE_UNITS,
+                         ids=[c[0] for c in EPILOGUE_UNITS])
+def test_train_and_grad_calls_keep_the_eager_chain(case, mode, monkeypatch):
+    """``train=True`` and an eval call that needs gradients never enter
+    the op (it has no autograd formula): they run the eager chain,
+    gradients flow, and no kernel launches."""
+    _, make, eager, make_x, _ = case
+    module, x = _seed_units(make()), make_x()
+    monkeypatch.setattr(layers, "EPILOGUE_DEVICES", ("cpu", "cuda"))
+    calls = _spy_epilogue(monkeypatch)
+    epilogue.launches = 0
+    train = mode == "train"
+    if train:
+        ref = copy.deepcopy(module)
+        with torch.no_grad():
+            got, want = module(x, train=True), eager(ref, x, True)
+    else:
+        got = module(x)
+        with torch.no_grad():
+            want = eager(module, x)
+        got.float().sum().backward()
+        assert all(p.grad is not None for p in module.parameters())
+    assert calls == [] and epilogue.launches == 0
+    assert torch.equal(got.detach().view(torch.int16),
+                       want.view(torch.int16))

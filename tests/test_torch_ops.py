@@ -892,3 +892,151 @@ def test_yuv420_ctypes_args_match_the_kernels_structs(tmp_path):
     want += [luma + getattr(infeed._Plane, n).offset
              for n, _ in infeed._Plane._fields_]
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# The conv unit's inference epilogue (K3's op) on the CPU: the eager chain
+# written out, the fake implementation, the export, the wrapper's checks
+# ---------------------------------------------------------------------------
+
+from sparkdl_tpu_torch.ops import epilogue  # noqa: E402
+
+
+def _epilogue_inputs(c=16, shape=(2, 16, 5, 7), channels_last=True,
+                     seed=0):
+    """Seeded bf16 conv output and residual in the given layout, with NaN,
+    ±0 and ±inf planted in each, and seeded per-channel terms."""
+    g = torch.Generator().manual_seed(seed)
+
+    def act():
+        t = torch.randn(shape, generator=g).to(torch.bfloat16)
+        flat = t.view(-1)
+        for k, v in enumerate((float("nan"), 0.0, -0.0, float("inf"),
+                               float("-inf"))):
+            flat[k * 7 % flat.numel()] = v
+        return (t.contiguous(memory_format=torch.channels_last)
+                if channels_last else t)
+    y, residual = act(), act()
+    bias = (torch.randn(c, generator=g) * 0.2).to(torch.bfloat16)
+    mean = torch.randn(c, generator=g) * 0.2
+    var = torch.rand(c, generator=g) * 0.8 + 0.6
+    weight = torch.rand(c, generator=g) * 0.4 + 0.8
+    mul = torch.rsqrt(var + 1e-3) * weight
+    beta = torch.randn(c, generator=g) * 0.2
+    return y, bias, mean, mul, beta, residual
+
+
+@pytest.mark.parametrize("channels_last", [True, False],
+                         ids=["channels_last", "contiguous"])
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "no_relu"])
+@pytest.mark.parametrize("with_residual", [True, False],
+                         ids=["residual", "no_residual"])
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no_bias"])
+def test_conv_epilogue_cpu_is_the_eager_chain(with_bias, with_residual,
+                                              relu, channels_last):
+    """The op's CPU implementation gives, bit for bit, the formulas the
+    conv units ran before it: the bf16 bias add of ``conv2d``,
+    BatchNorm's fp32 ``(x - mean) * mul + offset``, the cast back, the
+    bottleneck's residual add and ReLU; NaN passes through; the output
+    keeps the input's layout."""
+    y, bias, mean, mul, beta, residual = _epilogue_inputs(
+        channels_last=channels_last)
+    bias = bias if with_bias else None
+    residual = residual if with_residual else None
+    shape = (1, -1, 1, 1)
+    want = y
+    if bias is not None:
+        want = want + bias.view(shape)
+    want = ((want.to(torch.float32) - mean.view(shape)) * mul.view(shape)
+            + beta.view(shape)).to(torch.bfloat16)
+    if residual is not None:
+        want = want + residual
+    if relu:
+        want = torch.nn.functional.relu(want)
+    with torch.inference_mode():
+        got = epilogue.conv_epilogue(y, bias, mean, mul, beta, residual,
+                                     relu)
+    assert got.dtype == torch.bfloat16 and got.shape == y.shape
+    assert got.stride() == y.stride()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert torch.isnan(got).any()
+    assert epilogue.launches == 0
+
+
+@pytest.mark.parametrize("channels_last", [True, False],
+                         ids=["channels_last", "contiguous"])
+def test_conv_epilogue_fake_and_export(channels_last):
+    """The fake implementation gives the output's shape, dtype and memory
+    format without data; ``torch.library.opcheck`` passes; an exported
+    module holds the op by name and runs it."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    y, bias, mean, mul, beta, residual = _epilogue_inputs(
+        channels_last=channels_last)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = epilogue.conv_epilogue(torch.empty_like(y), bias, mean, mul,
+                                      beta, torch.empty_like(residual))
+        assert fake.shape == y.shape and fake.dtype == torch.bfloat16
+        assert fake.is_contiguous(memory_format=fmt)
+    # finite inputs: opcheck compares eager and traced outputs as values,
+    # and a NaN is never equal to itself
+    finite = [t.nan_to_num() for t in (y, residual)]
+    torch.library.opcheck(torch.ops.sparkdl_tpu_torch.conv_epilogue,
+                          (finite[0], bias, mean, mul, beta, finite[1],
+                           True))
+
+    class Unit(torch.nn.Module):
+        def forward(self, y, residual):
+            return epilogue.conv_epilogue(y, bias, mean, mul, beta,
+                                          residual, True)
+    program = torch.export.export(Unit(), (y, residual))
+    assert "sparkdl_tpu_torch.conv_epilogue" in program.graph_module.code
+    got = program.module()(y, residual)
+    want = epilogue.conv_epilogue_plain(y, bias, mean, mul, beta, residual)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def _bad_epilogue_args(case):
+    y, bias, mean, mul, beta, residual = _epilogue_inputs()
+    if case == "dtype":
+        y = y.float()
+    elif case == "rank":
+        y = y[0]
+    elif case == "channels":
+        mean = torch.zeros(17)
+    elif case == "bias_dtype":
+        bias = bias.float()
+    elif case == "residual_shape":
+        residual = residual[:, :, :4]
+    elif case == "residual_layout":
+        residual = residual.contiguous()
+    elif case == "layout":
+        y = y.transpose(2, 3)
+    return y, bias, mean, mul, beta, residual
+
+
+@pytest.mark.parametrize("case, match", [
+    ("dtype", "bfloat16"), ("rank", r"\[N, C, H, W\]"),
+    ("channels", r"mean must be \[16\]"), ("bias_dtype", "bias must be"),
+    ("residual_shape", "residual must be"),
+    ("residual_layout", "residual must be in y's layout"),
+    ("layout", "channels_last or contiguous")])
+def test_conv_epilogue_wrapper_rejects(case, match):
+    with pytest.raises(ValueError, match=match):
+        epilogue.conv_epilogue(*_bad_epilogue_args(case))
+
+
+def test_build_hash_is_each_kernels_own(tmp_path, monkeypatch):
+    """A kernel's library name changes with its own source and the
+    headers beside it, not with another kernel's source."""
+    from sparkdl_tpu_torch.ops import _build
+    (tmp_path / "a.cu").write_text("int a();\n")
+    (tmp_path / "b.cu").write_text("int b();\n")
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    a, b = _build.library_path("a"), _build.library_path("b")
+    (tmp_path / "b.cu").write_text("int b(); // edited\n")
+    assert _build.library_path("a") == a
+    assert _build.library_path("b") != b
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    assert _build.library_path("a") != a
