@@ -2,7 +2,7 @@
 
 The controls are the reference put in the program's place and computed
 one precision below the configuration's bfloat16: float8 e4m3 with a
-scale per tensor on the convs' operands only (``fp8_operands``), and on
+scale per tensor on the network's products only (``fp8_operands``), and on
 every bfloat16 value of the network (``fp8_values``); see
 ``reference/layers.py``. Each is judged by the number a run compares,
 against the float32 reference, over every row a pass of the cell
@@ -37,12 +37,11 @@ def readings(cell, seed: int, device) -> dict:
     """Each control's worst-row relative error on ``seed``'s rows."""
     from perfbench import check
     from perfbench.reference.layers import CONTROLS
-    from perfbench.weights import make_state
+    from perfbench.weights import for_cell
 
     rows = cell.driver().rows(
         types.SimpleNamespace(cell=cell, seed=seed, device=device))
-    state = make_state(cell.reference().param_shapes(), seed, device,
-                       cell.config["weights"])
+    state = for_cell(cell, seed, device)
     ref = check.reference_outputs(cell, state, rows, device)
     return {name: float(check.row_errors(
         check.reference_outputs(cell, state, rows, device, quant=q),

@@ -12,7 +12,18 @@ per-layer metric lives in a file of its own that is found by the name
 * ``metrics/<metric>.py``     a reader ``read(record)`` of one per-layer
                               metric (``None`` where it finds nothing);
 * ``kernels/<kernel>.py``     a kernel's work per call and its trace name;
-* ``reference/<module>.py``   the plain reference a configuration names.
+* ``reference/<module>.py``   the plain reference a configuration names:
+                              ``forward(state, x, quant)``,
+                              ``param_shapes()`` and, where a key's
+                              suffix does not say how it is seeded,
+                              ``param_kinds()``.
+
+A configuration's ``weights`` is its seeding scheme, read by
+``weights.py`` by each parameter's kind (``kernel``, ``gamma``, ``var``,
+``mean``, ``beta``, ``bias``, ``embedding``): ``bn_gamma``, ``bn_var``,
+``bn_mean_std``, ``bn_beta_std``, ``bias_std``, ``embedding_std``, and
+the patterns ``bn_scale`` that scale the scales whose keys they name.
+So a new model is new files only.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import os
 
-from perfbench.weights import make_state
+from perfbench.weights import for_cell
 
 # the registry counters the per-layer metrics read as deltas
 COUNTERS = ("engine.busy_seconds", "device.run_seconds")
@@ -20,8 +20,7 @@ def seed_weights(ctx):
     provenance cascade. Returns the state dict for the reference."""
     from sparkdl_tpu_torch.models.fetcher import CACHE_ENV, ModelFetcher
     cfg = ctx.cell.config
-    state = make_state(ctx.cell.reference().param_shapes(), ctx.seed,
-                       ctx.device, cfg["weights"])
+    state = for_cell(ctx.cell, ctx.seed, ctx.device)
     ModelFetcher(cache_dir=ctx.tmp).put(f"{cfg['model']}.pt", state)
     os.environ[CACHE_ENV] = ctx.tmp
     return state
