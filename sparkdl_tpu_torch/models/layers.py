@@ -1,5 +1,6 @@
 """Shared conv building blocks — counterpart of
-``sparkdl_tpu/models/layers.py``.
+``sparkdl_tpu/models/layers.py`` — and, at the end, the transformer
+pieces of ``models/siglip.py``, which the JAX package does not carry.
 
 Modules take NCHW tensors (channels_last in memory on the main path: a
 permute of a contiguous NHWC tensor). Numerics follow the JAX package:
@@ -324,3 +325,62 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """[N, C, H, W] → [N, C], in the input dtype (a bf16 mean, as the JAX
     package's ``jnp.mean`` of a bf16 tensor)."""
     return x.mean(dim=(2, 3))
+
+
+# ---------------------------------------------------------------------------
+# transformer pieces (models/siglip.py): the token stream and every product
+# in the model dtype (bf16), LayerNorm's and the softmax's statistics in
+# float32
+# ---------------------------------------------------------------------------
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last dim with float32 parameters, as
+    :class:`BatchNorm` keeps its own. The statistics and the
+    normalisation run in float32 inside ``F.layer_norm`` (its
+    accumulation type for a bf16 input), with the scale and offset
+    taken in the input's dtype (CUDA's ``layer_norm`` takes no float32
+    parameters for a bf16 input), and the result is rounded once to
+    it."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.weight.shape, self.weight.to(x.dtype),
+                            self.bias.to(x.dtype), self.eps)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """GELU with the tanh approximation (``gelu_pytorch_tanh``, flax's
+    ``nn.gelu(approximate=True)``)."""
+    return F.gelu(x, approximate="tanh")
+
+
+# the fused backends attention may take on the card: never the math
+# fallback, which would build every head's [N, N] scores in device memory
+FUSED_ATTENTION = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                   "CUDNN_ATTENTION")
+# sdpa_kernel sets process-wide flags: one attention call holds them at
+# a time, so two threads running models never restore each other's
+_SDPA_FLAGS = threading.Lock()
+
+
+def attention(q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> torch.Tensor:
+    """Softmax attention ``softmax(q kᵀ / √d) v`` of [B, H, Nq, d] queries
+    over [B, H, N, d] keys and values (no mask), through
+    ``F.scaled_dot_product_attention``: on the card limited to
+    :data:`FUSED_ATTENTION`, so a shape, dtype or layout no fused kernel
+    takes raises there rather than fall back; plain on the CPU. Counted
+    as ``model.attention.calls`` on either device."""
+    from sparkdl_tpu_torch.obs.registry import default_registry
+    default_registry().counter("model.attention.calls").add()
+    if q.device.type != "cuda":
+        return F.scaled_dot_product_attention(q, k, v)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with _SDPA_FLAGS, sdpa_kernel([getattr(SDPBackend, b)
+                                   for b in FUSED_ATTENTION]):
+        return F.scaled_dot_product_attention(q, k, v)

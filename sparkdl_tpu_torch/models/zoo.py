@@ -1,7 +1,9 @@
 """Named-model zoo registry — counterpart of ``sparkdl_tpu/models/zoo.py``:
 every model the JAX zoo carries (InceptionV3, Xception, ResNet50, VGG16,
 VGG19 and the tiny TestNet), their weights, class indices and
-``decode_predictions``.
+``decode_predictions``; and one model the JAX package does not carry,
+the SigLIP so400m/14 vision tower at 384 (``models/siglip.py``), a
+featurizer without a classifier.
 
 Preprocessing is part of the model function: uint8 NHWC comes in, is
 viewed as NCHW (channels_last in memory, no copy), preprocessed on the
@@ -26,14 +28,17 @@ from sparkdl_tpu_torch._device import DeviceLike, resolve_device
 from sparkdl_tpu_torch.graph.function import ModelFunction
 from sparkdl_tpu_torch.models.fetcher import ModelFetcher
 from sparkdl_tpu_torch.models.inception import InceptionV3
+from sparkdl_tpu_torch.models.layers import BatchNorm, LayerNorm
 from sparkdl_tpu_torch.models.resnet import ResNet50
+from sparkdl_tpu_torch.models.siglip import SigLIP
 from sparkdl_tpu_torch.models.testnet import TestNet
 from sparkdl_tpu_torch.models.vgg import VGG16, VGG19
 from sparkdl_tpu_torch.models.xception import Xception
 
 
 def _inception_preprocess(x: torch.Tensor) -> torch.Tensor:
-    """uint8 → [-1, 1] float32 (x/127.5 - 1, InceptionV3/Xception)."""
+    """uint8 → [-1, 1] float32 (x/127.5 - 1, InceptionV3/Xception; SigLIP's
+    rescale with mean 0.5 and std 0.5)."""
     return x.to(torch.float32) * (1.0 / 127.5) - 1.0
 
 
@@ -58,14 +63,15 @@ def _testnet_preprocess(x: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class NamedImageModel:
-    """Zoo entry: constructor, input size, preprocess, output widths."""
+    """Zoo entry: constructor, input size, preprocess, output widths
+    (``num_classes`` None: a featurizer without a classifier)."""
 
     name: str
     module_fn: Callable[..., nn.Module]   # (dtype=...) -> module
     input_size: Tuple[int, int]           # (height, width)
     preprocess: Callable[[torch.Tensor], torch.Tensor]
     feature_dim: int
-    num_classes: int = 1000
+    num_classes: Optional[int] = 1000
 
     @property
     def height(self) -> int:
@@ -90,6 +96,8 @@ KERAS_APPLICATION_MODELS: Dict[str, NamedImageModel] = {
                         _caffe_preprocess, 4096),
         NamedImageModel("TestNet", TestNet, (32, 32),
                         _testnet_preprocess, 16, num_classes=10),
+        NamedImageModel("SigLIP-so400m-patch14-384", SigLIP, (384, 384),
+                        _inception_preprocess, 1152, num_classes=None),
     ]
 }
 
@@ -111,25 +119,30 @@ def getKerasApplicationModel(name: str) -> NamedImageModel:
 @functools.lru_cache(maxsize=2)  # bounded: full state dicts are large
 def init_state_dict(name: str, seed: int = 0) -> Dict[str, torch.Tensor]:
     """Deterministic seeded init on the CPU, with flax's default
-    initializers: conv and dense kernels LeCun-normal (truncated at two
-    standard deviations), biases 0, BatchNorm scale 1 / bias 0 / mean 0 /
-    var 1. The numbers differ from the JAX package's seeded init (another
-    generator); weights shared with it go through the fetcher cache."""
+    initializers: every tensor of two or more dims (conv and dense
+    kernels, embeddings, a probe token) LeCun-normal over its first
+    dim's slice (truncated at two standard deviations), biases 0, a
+    normalization's (BatchNorm, LayerNorm) scale 1 and offset 0,
+    BatchNorm mean 0 / var 1. The numbers differ from the JAX package's
+    seeded init (another generator); weights shared with it go through
+    the fetcher cache."""
     with torch.device("meta"):   # shapes only: no default init
         module = getKerasApplicationModel(name).module_fn()
+    scales = {f"{prefix}.weight" for prefix, m in module.named_modules()
+              if isinstance(m, (BatchNorm, LayerNorm))}
     gen = torch.Generator().manual_seed(seed)
     state = {}
     for key, value in module.state_dict().items():
         value = torch.empty(value.shape, dtype=torch.float32)
-        if key.endswith(".weight") and value.ndim > 1:   # conv, dense
+        if key in scales or key.endswith("running_var"):
+            value.fill_(1.0)
+        elif value.ndim > 1:   # kernels, embeddings
             fan_in = value[0].numel()
             # unit variance after truncation at ±2σ (flax's
             # truncated_normal variance scaling)
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             nn.init.trunc_normal_(value, 0.0, std, -2 * std, 2 * std,
                                   generator=gen)
-        elif key.endswith("running_var") or key.endswith("bn.weight"):
-            value.fill_(1.0)
         else:
             value.zero_()
         state[key] = value
@@ -271,8 +284,13 @@ def getModelFunction(name: str, featurize: bool = True,
                      ) -> ModelFunction:
     """Named model → ModelFunction on ``device`` (``None`` = the card):
     uint8 NHWC [N, H, W, 3] → ``features`` (penultimate layer) or, with
-    ``featurize=False``, softmax ``predictions``."""
+    ``featurize=False``, softmax ``predictions`` (a ``ValueError`` for a
+    model without a classifier)."""
     spec = getKerasApplicationModel(name)
+    if not featurize and spec.num_classes is None:
+        raise ValueError(f"model {name!r} has no classifier: it gives "
+                         f"features only (featurize=True, "
+                         f"DeepImageFeaturizer)")
     device = resolve_device(device)   # before any work: no card raises
     net = build_module(spec.module_fn, load_state_dict(name, fetcher),
                        device)

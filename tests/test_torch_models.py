@@ -594,10 +594,14 @@ def test_zoo_registry_and_preprocess_match_jax(name):
     """Every model of the JAX zoo is in the port's, with the same input
     size, feature width and class count, and a preprocess that gives the
     JAX package's float32 values exactly (caffe's RGB → BGR flip on the
-    NCHW channel axis, then the BGR means)."""
+    NCHW channel axis, then the BGR means). The port's zoo is the JAX
+    zoo plus exactly SigLIP so400m/14-384, which the JAX package does
+    not carry (``tests/test_torch_siglip.py`` holds it to its plain
+    reference)."""
     from sparkdl_tpu.models import zoo as jax_zoo
     from sparkdl_tpu_torch.models import zoo
-    assert zoo.SUPPORTED_MODELS == jax_zoo.SUPPORTED_MODELS
+    assert zoo.SUPPORTED_MODELS == jax_zoo.SUPPORTED_MODELS + (
+        "SigLIP-so400m-patch14-384",)
     spec, ref_spec = (zoo.getKerasApplicationModel(name),
                       jax_zoo.getKerasApplicationModel(name))
     assert (spec.input_size, spec.feature_dim, spec.num_classes) == (
