@@ -22,9 +22,15 @@ fleet with the standard library's ``pickle``; a user's own lambda
 in ``map_batches`` stays as given, and the pipeline then takes its
 counted thread fallback.
 
-Armed (``obs/trace.py``), :meth:`DataFrame.collect` records a
-``frame.collect`` span around the whole pass and a ``frame.concat`` span
-(``rows``, ``bytes``) around the concatenation of its batches, both on
+:meth:`DataFrame.collect` streams a pass whose row count is known
+before it runs (``data/collect.py``): its fixed-width columns are copied
+into place as the batches arrive, off the consumer thread; every other
+pass concatenates its batches at the end. The registry counts passes by
+route (``frame.collect.streamed``, ``frame.collect.concatenated``) and
+the streamed columns that fell back (``frame.collect.fallback_columns``).
+Armed (``obs/trace.py``), collect records a ``frame.collect`` span
+around the whole pass and a ``frame.concat`` span (``rows``, ``bytes``,
+``streamed``, ``tail_bytes``) around the end's wait and copy, both on
 the ``engine`` lane.
 """
 
@@ -43,6 +49,7 @@ from typing import Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from sparkdl_tpu_torch.data.collect import StreamedConcat
 from sparkdl_tpu_torch.data.tensors import (
     Batch,
     TensorColumn,
@@ -50,6 +57,7 @@ from sparkdl_tpu_torch.data.tensors import (
     column_values,
     concat_columns,
 )
+from sparkdl_tpu_torch.obs.registry import default_registry
 from sparkdl_tpu_torch.obs.trace import span, tracer
 
 logger = logging.getLogger(__name__)
@@ -480,6 +488,19 @@ def concat_batches(batches: List[Batch]) -> Batch:
         return {}
     return {k: concat_columns([b[k] for b in batches])
             for k in batches[0]}
+
+
+def _concat_pass(parts: List[Batch], streamed: StreamedConcat) -> Batch:
+    """A pass's batch from its kept batches, counted by route."""
+    reg = default_registry()
+    if not streamed.streaming:
+        reg.counter("frame.collect.concatenated").add(1)
+        return concat_batches(parts)
+    reg.counter("frame.collect.streamed").add(1)
+    out, fallback = streamed.finish(parts)
+    if fallback:
+        reg.counter("frame.collect.fallback_columns").add(fallback)
+    return out
 
 
 def num_rows(batch: Batch) -> int:
@@ -1154,19 +1175,26 @@ class DataFrame:
         column computed from no rows may lack its row shape); when all
         are empty, the first is kept as the schema carrier."""
         with span("frame.collect", lane="engine"):
-            batches = []
-            for b in self.stream():
-                if on_batch is not None:
-                    on_batch(b)
-                batches.append(b)
-            parts = [b for b in batches if num_rows(b)] or batches[:1]
-            if not tracer().armed:
-                return concat_batches(parts)
-            nbytes = sum(int(getattr(v, "nbytes", 0))
-                         for b in parts for v in b.values())
-            with span("frame.concat", lane="engine",
-                      rows=sum(num_rows(b) for b in parts), bytes=nbytes):
-                return concat_batches(parts)
+            streamed = StreamedConcat(self.known_count())
+            try:
+                batches = []
+                for b in self.stream():
+                    if on_batch is not None:
+                        on_batch(b)
+                    batches.append(b)
+                    streamed.add(b)
+                parts = [b for b in batches if num_rows(b)] or batches[:1]
+                if not tracer().armed:
+                    return _concat_pass(parts, streamed)
+                nbytes = sum(int(getattr(v, "nbytes", 0))
+                             for b in parts for v in b.values())
+                with span("frame.concat", lane="engine",
+                          rows=sum(num_rows(b) for b in parts),
+                          bytes=nbytes, streamed=streamed.streaming,
+                          tail_bytes=streamed.tail_bytes(parts)):
+                    return _concat_pass(parts, streamed)
+            finally:
+                streamed.close()
 
     def collect_rows(self) -> List[dict]:
         batch = self.collect()
